@@ -1,0 +1,40 @@
+"""Elementwise RQ-spline activation.
+
+Port of ``inverse_flow_tpu/layers/activations.py:SplineActivation`` with
+``individual_weights=True``, the flagship's setting: one knot set per
+tensor position, shared over the batch.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from .base import FlowLayer, sum_except_batch
+from .splines import unconstrained_rational_quadratic_spline
+
+
+class SplineActivation(FlowLayer):
+
+    def __init__(self, input_size: Tuple[int, ...], n_bins: int = 5,
+                 tail_bound: float = 10.0, generator=None, device=None):
+        super().__init__()
+        self.tail_bound = tail_bound
+        wshape = (1,) + tuple(input_size) + (n_bins,)
+        dshape = (1,) + tuple(input_size) + (n_bins - 1,)
+
+        def noise(shape):
+            return nn.Parameter(0.01 * torch.randn(
+                shape, generator=generator, device=device))
+
+        self.widths = noise(wshape)
+        self.heights = noise(wshape)
+        self.derivs = noise(dshape)
+
+    def forward_with(self, p, x, generator=None):
+        out, ld = unconstrained_rational_quadratic_spline(
+            x, p["widths"], p["heights"], p["derivs"],
+            tail_bound=self.tail_bound)
+        return out, sum_except_batch(ld)

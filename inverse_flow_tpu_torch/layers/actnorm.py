@@ -1,0 +1,37 @@
+"""ActNorm: per-channel affine with data-dependent initialization.
+
+Port of ``inverse_flow_tpu/layers/actnorm.py`` (4-D inputs).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .base import FlowLayer
+
+
+class ActNorm(FlowLayer):
+    """``out = (x - t) * exp(-log_s)`` per channel; ldj
+    ``-sum(log_s) * H * W``."""
+
+    def __init__(self, n_dims: int, generator=None, device=None):
+        super().__init__()
+        self.n_dims = n_dims
+        self.translation = nn.Parameter(
+            torch.randn(n_dims, generator=generator, device=device))
+        self.log_scale = nn.Parameter(
+            torch.randn(n_dims, generator=generator, device=device))
+
+    def data_init_with(self, p, x):
+        # population std (correction=0), as jnp.std
+        std, mean = torch.std_mean(x, dim=(0, 2, 3), correction=0)
+        with torch.no_grad():
+            p["translation"].copy_(mean)
+            p["log_scale"].copy_(torch.log(std + 1e-8))
+
+    def forward_with(self, p, x, generator=None):
+        t = p["translation"].reshape(1, -1, 1, 1)
+        log_s = p["log_scale"].reshape(1, -1, 1, 1)
+        ldj = -p["log_scale"].sum() * x.shape[2] * x.shape[3]
+        return (x - t) * torch.exp(-log_s), ldj.expand(x.shape[0])

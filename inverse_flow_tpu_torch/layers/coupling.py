@@ -1,0 +1,59 @@
+"""Affine coupling with the Glow-style zero-initialized conv net.
+
+Port of ``inverse_flow_tpu/layers/coupling.py:Coupling`` (float32): net
+conv3x3 -> ReLU -> conv1x1 -> ReLU -> Conv2dZero (zero init, ReZero
+log-scale); ``log_s = 2*tanh(h/2)``; even/odd channel split of the net
+output.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .base import FlowLayer, sum_except_batch
+
+
+def _kaiming_uniform(shape, generator, device):
+    """nn.Conv2d's default weight init (kaiming_uniform, a=sqrt(5))."""
+    bound = 1.0 / math.sqrt(shape[1] * shape[2] * shape[3])
+    u = torch.rand(shape, generator=generator, device=device)
+    return nn.Parameter((2 * u - 1) * bound)
+
+
+class Coupling(FlowLayer):
+    """Affine coupling on channel halves: the first C//2 channels of
+    ``input_size`` (C, H, W) condition the transform of the rest.
+    ``remat_net`` (backward memory) has no effect on the forward pass and
+    is accepted for signature parity."""
+
+    def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
+                 logscale_factor: float = 3.0, remat_net: bool = False,
+                 generator=None, device=None):
+        super().__init__()
+        c = input_size[0]
+        self.half_channels = c // 2
+        self.logscale_factor = logscale_factor
+        self.w1 = _kaiming_uniform((width, c // 2, 3, 3), generator, device)
+        self.w2 = _kaiming_uniform((c, width, 1, 1), generator, device)
+        self.w3 = nn.Parameter(torch.zeros((c, c, 3, 3), device=device))
+        self.b3 = nn.Parameter(torch.zeros((c,), device=device))
+        self.logs3 = nn.Parameter(torch.zeros((c,), device=device))
+
+    def _net(self, p, x1):
+        h = F.relu(F.conv2d(x1, p["w1"], padding=1))
+        h = F.relu(F.conv2d(h, p["w2"]))
+        h = F.conv2d(h, p["w3"], p["b3"], padding=1)
+        return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
+            1, -1, 1, 1)
+
+    def forward_with(self, p, x, generator=None):
+        x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
+        h = self._net(p, x1)
+        log_s = 2.0 * torch.tanh(h[:, ::2] / 2.0)
+        z2 = x2 * torch.exp(log_s) + h[:, 1::2]
+        return torch.cat([x1, z2], dim=1), sum_except_batch(log_s)

@@ -1,0 +1,54 @@
+"""K identical flow steps with their parameters stacked on a leading K
+axis, as in the JAX params pytree.
+
+Port of ``inverse_flow_tpu/layers/repeated.py:RepeatedBlock`` (forward and
+``data_init``): the JAX ``lax.scan`` over the stacked parameters becomes a
+loop over k that hands each step layer the k-th slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+from .base import FlowLayer, zeros_ldj
+
+
+class RepeatedBlock(FlowLayer):
+    """``make_step()`` returns one step's layers (shape preserving, no
+    randomness); it is called ``n_repeats`` times so that every step gets
+    its own initial parameters, which are then stacked."""
+
+    def __init__(self, make_step: Callable[[], Sequence[FlowLayer]],
+                 n_repeats: int):
+        super().__init__()
+        steps = [list(make_step()) for _ in range(n_repeats)]
+        self.n_repeats = n_repeats
+        self.steps = nn.ModuleList(steps[0])
+        for j, layer in enumerate(self.steps):
+            for name in list(layer.own_params()):
+                stacked = torch.stack(
+                    [getattr(step[j], name).detach() for step in steps])
+                setattr(layer, name, nn.Parameter(stacked))
+
+    def _step_params(self, k):
+        return [{n: t[k] for n, t in layer.own_params().items()}
+                for layer in self.steps]
+
+    def forward_with(self, p, x, generator=None):
+        ldj = zeros_ldj(x)
+        for k in range(self.n_repeats):
+            for layer, pk in zip(self.steps, self._step_params(k)):
+                x, l = layer.forward_with(pk, x)
+                ldj = ldj + l
+        return x, ldj
+
+    @torch.no_grad()
+    def data_init_with(self, p, x):
+        """Sequential data-dependent init (ActNorm) across the K steps."""
+        for k in range(self.n_repeats):
+            for layer, pk in zip(self.steps, self._step_params(k)):
+                layer.data_init_with(pk, x)
+                x, _ = layer.forward_with(pk, x)

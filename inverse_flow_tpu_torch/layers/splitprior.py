@@ -1,0 +1,26 @@
+"""SplitPrior: coupling, then factor out half the channels under a
+standard normal whose log-prob joins the layer's ldj.
+
+Port of ``inverse_flow_tpu/layers/splitprior.py:SplitPrior.forward``. Its
+parameters are the coupling's, under the same names.
+"""
+
+from __future__ import annotations
+
+from ..distributions import GaussianPrior
+from .coupling import Coupling
+
+
+class SplitPrior(Coupling):
+
+    def __init__(self, input_size, width: int = 512, remat_net: bool = False,
+                 generator=None, device=None):
+        super().__init__(input_size, width=width, remat_net=remat_net,
+                         generator=generator, device=device)
+        c, h, w = input_size
+        self.base = GaussianPrior((c // 2, h, w))
+
+    def forward_with(self, p, x, generator=None):
+        z, ldj = super().forward_with(p, x)
+        c_half = z.shape[1] // 2
+        return z[:, :c_half], self.base.log_prob(z[:, c_half:]) + ldj

@@ -1,0 +1,82 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
+``nvcc`` for Hopper (sm_90a) into ``build/kernels/`` at the root of the
+checkout on first use, under a name that carries a hash of the source (so
+an edited source is never served by a stale library), and loaded with
+``ctypes``. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` if needed; returns the library path."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed on {src}:\n{e.stderr}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.cache
+def _chain_solve_cdll() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build("chain_solve"))
+    lib.chain_phases_init.argtypes = []
+    lib.chain_phases_init.restype = ctypes.c_int
+    fn = lib.chain_phases_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def chain_solve_lib(device_index: int) -> ctypes.CDLL:
+    """``csrc/chain_solve.cu``, built and loaded once per process, with the
+    kernel's shared memory limit raised once on CUDA device
+    ``device_index``, which must be the current device."""
+    lib = _chain_solve_cdll()
+    err = lib.chain_phases_init()
+    if err != 0:
+        raise RuntimeError(f"chain_phases_init failed with CUDA error {err}")
+    return lib

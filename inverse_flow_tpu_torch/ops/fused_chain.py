@@ -1,0 +1,225 @@
+"""Chained multi-order inverse-conv solve on the hand-written chain kernel.
+
+PyTorch port of ``inverse_flow_tpu/ops/fused_chain.py`` (forward). Each
+pad order solves ``y = F_o^{-1} solve_TL(F_o x, w_o)`` with ``F_o`` a flip
+of H and/or W. The flips are permutations that respect the row-blocked
+layout, so they are absorbed into the solve matrices (conjugated by
+``_rows_perm``), and an H-flipped order scans its blocks top
+down and carries the first KH-1 rows instead of the last. Every order then
+runs the same recurrence on unflipped data:
+
+    y_b = x_b @ T_eff^T - carry @ G_eff^T
+
+:func:`chain_phases` runs it: the CUDA kernel ``csrc/chain_solve.cu`` on a
+CUDA tensor, and :func:`chain_phases_reference`, the same function in plain
+torch, on a CPU tensor. The operator build (:func:`_phase_matrices`) is
+plain torch on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .inv_conv import _block_toeplitz_inverse, _prev_block, _row_matrices
+
+# (flip_h, flip_w) per pad order
+ORDER_FLAGS = {
+    "TL": (False, False),
+    "TR": (False, True),
+    "BL": (True, False),
+    "BR": (True, True),
+}
+
+# the kernel keeps a few batch rows of one block and its carry in shared
+# memory (csrc/chain_solve.cu:kMaxRcw); wider blocks need a tiled design
+MAX_RCW = 2048
+
+
+def choose_block_rows_fused(h: int, cw: int, kh: int):
+    """(rows per block, zero-padded tail rows), or None when no block size
+    with at least two blocks exists.
+
+    H need not be a multiple of R: the last block's tail is zero-padded and
+    re-zeroed after every phase. Exact divisors are preferred; R >= KH-1
+    so a block reaches back at most one block; R*CW near 512."""
+    cands = list(range(max(kh - 1, 1), h))      # r < h  =>  nb >= 2
+    if not cands:
+        return None
+    fitting = [r for r in cands if r * cw <= 1024]
+    pool = fitting or [min(cands)]
+    divisors = [r for r in pool if h % r == 0]
+    r = min(divisors or pool, key=lambda r: (abs(r * cw - 512), (-h) % r))
+    return r, (-h) % r
+
+
+# ---------------------------------------------------------------------------
+# Permutation-conjugated solve matrices
+# ---------------------------------------------------------------------------
+
+def _cw_perm(width, c, fw, device):
+    i = torch.arange(width * c, device=device)
+    if not fw:
+        return i
+    return (width - 1 - i // c) * c + i % c
+
+
+def _rows_perm(rows, width, c, fh, fw, device):
+    """Permutation of ``rows`` flattened (w, c) row vectors: reverse the
+    rows when ``fh``, the pixels within each row when ``fw``."""
+    cw = width * c
+    i = torch.arange(rows * cw, device=device)
+    rr, ii = i // cw, i % cw
+    rn = (rows - 1 - rr) if fh else rr
+    return rn * cw + _cw_perm(width, c, fw, device)[ii]
+
+
+def _phase_matrices(w_eff, order, width, r):
+    """(T_eff, G_eff) for one order: the blocked solve matrices conjugated
+    by the order's flip permutations, so the kernel runs on unflipped
+    data."""
+    c, kh = w_eff.shape[0], w_eff.shape[2]
+    fh, fw = ORDER_FLAGS[order]
+    mats = _row_matrices(w_eff, width)
+    t_inv = _block_toeplitz_inverse(mats, r)
+    g = t_inv @ _prev_block(mats, r)
+    q = _rows_perm(r, width, c, fh, fw, w_eff.device)
+    s = _rows_perm(kh - 1, width, c, fh, fw, w_eff.device)
+    return t_inv[q][:, q], g[q][:, s]
+
+
+# ---------------------------------------------------------------------------
+# Layout helpers
+# ---------------------------------------------------------------------------
+
+def _to_blocks(x, r):
+    """NCHW -> (NB, B, R*CW), rows flattened (w, c)."""
+    b, c, h, width = x.shape
+    rows = x.permute(0, 2, 3, 1).reshape(b, h // r, r * width * c)
+    return rows.transpose(0, 1).contiguous()
+
+
+def _from_blocks(yb, c, h, width):
+    """(NB, B, R*CW) -> NCHW."""
+    b = yb.shape[1]
+    rows = yb.transpose(0, 1).reshape(b, h, width, c)
+    return rows.permute(0, 3, 1, 2)
+
+
+def _from_blocks_trim(yb, c, h, width):
+    """(NB, B, RCW) -> NCHW, dropping zero-padded tail rows beyond H."""
+    nb, _, rcw = yb.shape
+    h_pad = nb * (rcw // (width * c))
+    y = _from_blocks(yb, c, h_pad, width)
+    return y[:, :, :h] if h_pad != h else y
+
+
+# ---------------------------------------------------------------------------
+# The recurrence: plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+def chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw=0):
+    """Plain torch version of :func:`chain_phases`: the stacked outputs
+    (N, NB, B, RCW) of every phase."""
+    nb, b, rcw = xb.shape
+    keep = torch.arange(rcw, device=xb.device) < rcw - pad_cw
+    src, phases = xb, []
+    for o, flip_h in enumerate(dirs):
+        carry = xb.new_zeros((b, kcw))
+        ys = [None] * nb
+        for i in range(nb):
+            m = nb - 1 - i if flip_h else i
+            v = src[m] @ t_all[o].T - carry @ g_all[o].T
+            if pad_cw and m == nb - 1:
+                v = torch.where(keep, v, 0.0)
+            ys[m] = v
+            carry = v[:, :kcw] if flip_h else v[:, rcw - kcw:]
+        src = torch.stack(ys)
+        phases.append(src)
+    return torch.stack(phases)
+
+
+def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0):
+    """All phase outputs (N, NB, B, RCW) of the chain recurrence.
+
+    ``xb`` (NB, B, RCW), ``t_all`` (N, RCW, RCW), ``g_all`` (N, RCW, KCW),
+    float32; ``dirs[o]`` is True when order o flips H (scans top down);
+    the last ``pad_cw`` columns of the last block are zero-padded rows.
+    CPU tensors take :func:`chain_phases_reference`; CUDA tensors launch
+    the kernel, and ``chain_phases.launches`` counts the launches."""
+    if xb.device.type == "cpu":
+        return chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw)
+    if xb.device.type != "cuda":
+        raise ValueError(f"chain_phases: unsupported device {xb.device}")
+    nb, b, rcw = xb.shape
+    n = len(dirs)
+    tensors = (xb, t_all, g_all)
+    if any(t.device != xb.device for t in tensors):
+        raise ValueError("chain_phases: inputs on different devices")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("chain_phases: the kernel takes float32 only")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("chain_phases: inputs must be contiguous")
+    if not (1 <= n <= 4 and 0 < kcw <= rcw <= MAX_RCW and 0 <= pad_cw < rcw
+            and nb >= 1 and b >= 1
+            and t_all.shape == (n, rcw, rcw)
+            and g_all.shape == (n, rcw, kcw)):
+        raise ValueError(
+            f"chain_phases: unsupported shapes x{tuple(xb.shape)} "
+            f"T{tuple(t_all.shape)} G{tuple(g_all.shape)} n={n} "
+            f"kcw={kcw} pad_cw={pad_cw}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "chain_phases: the CUDA kernel has no backward yet; run it "
+            "under torch.no_grad() or torch.inference_mode()")
+    from ._build import chain_solve_lib
+
+    y = torch.empty((n, nb, b, rcw), dtype=torch.float32, device=xb.device)
+    dirs_mask = sum(1 << o for o, flip_h in enumerate(dirs) if flip_h)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = chain_solve_lib(xb.device.index).chain_phases_f32(
+            xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(), y.data_ptr(),
+            n, nb, b, rcw, kcw, pad_cw, dirs_mask, stream)
+    if err != 0:
+        raise RuntimeError(f"chain_phases: kernel launch failed with CUDA "
+                           f"error {err}")
+    chain_phases.launches += 1
+    return y
+
+
+chain_phases.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public op
+# ---------------------------------------------------------------------------
+
+def chain_inputs(x, w_effs, orders):
+    """The arguments of :func:`chain_phases` for solving ``x`` (B, C, H, W)
+    through the chain: ``(xb, t_all, g_all, dirs, kcw, pad_cw)``. Row
+    blocks cover the zero-padded height ceil(H/R)*R."""
+    b, c, h, width = x.shape
+    kh = w_effs[0].shape[2]
+    rows = choose_block_rows_fused(h, c * width, kh)
+    if rows is None:
+        raise NotImplementedError(
+            f"fused_chain_solve: height {h} is too small for two row blocks "
+            f"of at least {kh - 1} rows")
+    r, pad = rows
+    phases = [_phase_matrices(w, o, width, r) for w, o in zip(w_effs, orders)]
+    t_all = torch.stack([p[0] for p in phases]).contiguous()
+    g_all = torch.stack([p[1] for p in phases]).contiguous()
+    dirs = tuple(ORDER_FLAGS[o][0] for o in orders)
+    xb = _to_blocks(F.pad(x.float(), (0, 0, 0, pad)), r)
+    return xb, t_all, g_all, dirs, (kh - 1) * c * width, pad * c * width
+
+
+def fused_chain_solve(x, w_effs, orders):
+    """``y = (solve_{o_n} . ... . solve_{o_1})(x)``: each ``solve_o`` is the
+    orientation-``o`` inverse of the masked conv with (already masked)
+    kernel ``w_effs[i]``. The chain's ldj is 0 (every factor is unit
+    triangular). Raises on a shape the kernel does not take."""
+    _, c, h, width = x.shape
+    phases = chain_phases(*chain_inputs(x, w_effs, orders))
+    return _from_blocks_trim(phases[-1], c, h, width)

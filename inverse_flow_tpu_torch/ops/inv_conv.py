@@ -1,0 +1,180 @@
+"""Inverse of a masked convolution: masking, the masked conv, and the
+row-blocked operator build that the chain solve runs on.
+
+PyTorch port of ``inverse_flow_tpu/ops/inv_conv.py`` (the subset the
+scoring path needs). In raster order the masked conv ``T`` is block-banded
+lower triangular, so ``y = T^{-1} x`` is solved row-blocked:
+
+  1. per-row dependence matrices ``mats`` (KH, CW, CW) from the kernel;
+  2. the R-row block operator inverted structurally (block-Toeplitz
+     recurrence from ``M0^{-1}``) and the coupling map ``G = T_blk^{-1} P``
+     to the previous block's last KH-1 rows;
+  3. ``y_b = x_b @ T_blk^{-T} - tail_{b-1} @ G^T`` over the row blocks.
+
+Step 3 runs in the chain kernel (``ops/fused_chain.py``);
+:func:`solve_ungrouped` here is the plain composition, kept as a second
+reference beside :func:`masked_conv_apply`.
+
+Rows are flattened as (w, c) -> w*C + c, so ``M0`` is elementwise
+unit-lower-triangular for a canonically masked kernel and its inverse is
+one triangular solve.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Masking
+# ---------------------------------------------------------------------------
+
+def center_mask(c_out: int, c_in: int, kh: int, kw: int, device=None):
+    """(mask, center_eye): ``w * mask + center_eye`` has
+    ``w[c, c, -1, -1] = 1`` and ``w[c, c' > c, -1, -1] = 0`` (canonical TL
+    orientation)."""
+    mask = torch.ones((c_out, c_in, kh, kw), device=device)
+    tri = torch.ones((c_out, c_in), device=device).triu()     # diag + upper
+    mask[:, :, -1, -1] -= tri
+    eye = torch.zeros((c_out, c_in, kh, kw), device=device)
+    eye[:, :, -1, -1] = torch.eye(c_out, c_in, device=device)
+    return mask, eye
+
+
+def apply_mask(w):
+    """``w_eff = w*mask + I_center``: unit-lower-triangular center tap.
+
+    Requires a square kernel: on a rectangular one the center eye would
+    cover only part of the channels and leave a singular operator."""
+    if w.shape[0] != w.shape[1]:
+        raise ValueError(
+            f"apply_mask expects a square per-group kernel, got "
+            f"{tuple(w.shape)}")
+    mask, eye = center_mask(*w.shape, device=w.device)
+    return w * mask + eye
+
+
+# ---------------------------------------------------------------------------
+# The masked convolution itself (sampling direction, test oracle)
+# ---------------------------------------------------------------------------
+
+def masked_conv_apply(y, w_eff):
+    """``z = T y``: conv with TL zero padding (KH-1 top, KW-1 left)."""
+    kh, kw = w_eff.shape[2], w_eff.shape[3]
+    return F.conv2d(F.pad(y, (kw - 1, 0, kh - 1, 0)), w_eff)
+
+
+# ---------------------------------------------------------------------------
+# Operator build
+# ---------------------------------------------------------------------------
+
+def _row_matrices(w_eff, width: int):
+    """(KH, CW, CW) stack of per-row dependence matrices. Index r=0 is the
+    within-row matrix M0; r>=1 maps row h-r into row h:
+
+      entry[r, (wi, c), (wj, c')] = w_eff[c, c', KH-1-r, KW-1-(wi-wj)]
+                                    for 0 <= wi-wj <= KW-1, else 0.
+    """
+    c_out, c_in, kh, kw = w_eff.shape
+    idx = torch.arange(width, device=w_eff.device)
+    diff = idx[:, None] - idx[None, :]                          # (W, W)
+    valid = (diff >= 0) & (diff <= kw - 1)
+    tap = kw - 1 - diff.clamp(0, kw - 1)
+    gathered = w_eff.flip(2)[:, :, :, tap]             # (C, C', KH, W, W)
+    gathered = gathered * valid.to(w_eff.dtype)
+    mats = gathered.permute(2, 3, 0, 4, 1)             # (KH, W, C, W, C')
+    return mats.reshape(kh, width * c_out, width * c_in)
+
+
+def _choose_block_rows(h: int, cw: int, kh: int) -> int:
+    """Rows per block for :func:`solve_ungrouped`: about 384 columns wide,
+    at most 1024, and R >= KH-1 so inter-block dependence reaches back
+    exactly one block."""
+    r = max(kh - 1, 1, min(h, -(-384 // cw)))
+    while r > max(kh - 1, 1) and r * cw > 1024:
+        r -= 1
+    return min(r, h)
+
+
+def _tri_inverse(m0):
+    """``M0^{-1}`` for an elementwise lower-triangular ``M0`` (the
+    canonically masked kernel's within-row matrix, unit diagonal)."""
+    eye = torch.eye(m0.shape[-1], dtype=m0.dtype, device=m0.device)
+    return torch.linalg.solve_triangular(m0, eye, upper=False)
+
+
+def _toeplitz_d_blocks(mats, r_rows: int):
+    """(R, CW, CW) blocks of ``T_blk^{-1}`` (KH >= 2): block (i, j) is
+    ``D[i-j]`` (zero above the diagonal), with ``D[0] = M0^{-1}`` and
+    ``D[d] = -M0^{-1} sum_{r=1..min(KH-1,d)} mats[r] D[d-r]``."""
+    kh = mats.shape[0]
+    m0_inv = _tri_inverse(mats[0])
+    d_blocks = [m0_inv]
+    for d in range(1, r_rows):
+        acc = sum(mats[r] @ d_blocks[d - r]
+                  for r in range(1, min(kh - 1, d) + 1))
+        d_blocks.append(-(m0_inv @ acc))
+    return torch.stack(d_blocks)
+
+
+def _block_toeplitz_inverse(mats, r_rows: int):
+    """Dense (R*CW, R*CW) ``T_blk^{-1}`` assembled from the D blocks."""
+    cw = mats.shape[1]
+    stack = _toeplitz_d_blocks(mats, r_rows)
+    i = torch.arange(r_rows, device=mats.device)
+    q = i[:, None] - i[None, :]
+    gathered = stack[q.clamp(0, r_rows - 1)]               # (R, R, CW, CW)
+    gathered = gathered * (q >= 0).to(mats.dtype)[:, :, None, None]
+    return gathered.permute(0, 2, 1, 3).reshape(r_rows * cw, r_rows * cw)
+
+
+def _prev_block(mats, r_rows: int):
+    """(R*CW, (KH-1)*CW) map from the previous block's last KH-1 rows
+    (tail[t] = y at block row R-(KH-1)+t) into this block's rows:
+    block (i, t) = mats[i + KH-1 - t] when 1 <= i+KH-1-t <= KH-1."""
+    kh, cw = mats.shape[0], mats.shape[1]
+    i = torch.arange(r_rows, device=mats.device)
+    t = torch.arange(kh - 1, device=mats.device)
+    q = i[:, None] + (kh - 1) - t[None, :]
+    valid = (q >= 1) & (q <= kh - 1)
+    gathered = mats[q.clamp(0, kh - 1)]                 # (R, KH-1, CW, CW)
+    gathered = gathered * valid.to(mats.dtype)[:, :, None, None]
+    return gathered.permute(0, 2, 1, 3).reshape(r_rows * cw, (kh - 1) * cw)
+
+
+# ---------------------------------------------------------------------------
+# Plain solve: y = T^{-1} x (second reference for the chain kernel)
+# ---------------------------------------------------------------------------
+
+def _scan_blocks(c_all, g, kcw: int):
+    """``y_n = c_n - tail @ G^T`` over the blocks, tail = last KH-1 rows
+    of ``y_{n-1}``."""
+    b, nb, rcw = c_all.shape
+    tail = c_all.new_zeros((b, kcw))
+    ys = []
+    for n in range(nb):
+        y_n = c_all[:, n] - tail @ g.T
+        ys.append(y_n)
+        tail = y_n[:, rcw - kcw:]
+    return torch.stack(ys, dim=1)
+
+
+def solve_ungrouped(x, w_eff):
+    """Solve ``T(w_eff) y = x`` (TL orientation, KH >= 2) with plain torch
+    ops."""
+    b, c, h, width = x.shape
+    kh = w_eff.shape[2]
+    cw = c * width
+    mats = _row_matrices(w_eff, width)
+    r = _choose_block_rows(h, cw, kh)
+    nb = -(-h // r)
+    rcw, kcw = r * cw, (kh - 1) * cw
+    t_inv = _block_toeplitz_inverse(mats, r)
+    x_rows = x.permute(0, 2, 3, 1).reshape(b, h, cw)
+    xb = F.pad(x_rows, (0, 0, 0, nb * r - h)).reshape(b, nb, rcw)
+    c_all = xb @ t_inv.T
+    if nb > 1:
+        c_all = _scan_blocks(c_all, t_inv @ _prev_block(mats, r), kcw)
+    y_rows = c_all.reshape(b, nb * r, cw)[:, :h]
+    return y_rows.reshape(b, h, width, c).permute(0, 3, 1, 2)

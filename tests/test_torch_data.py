@@ -1,0 +1,93 @@
+"""The port's data loaders and config against the JAX package's.
+
+The port has its own numpy-only copies of the loaders the scoring path
+uses, so that it imports nothing of the JAX package. They must give the
+same arrays and the same batches, exactly.
+"""
+
+import dataclasses
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+from inverse_flow_tpu.data import loader as jloader
+from inverse_flow_tpu.data import mnist as jmnist
+from inverse_flow_tpu.data import synthetic as jsynthetic
+from inverse_flow_tpu.train.config import ExperimentConfig as JaxConfig
+from inverse_flow_tpu_torch.data import loader as tloader
+from inverse_flow_tpu_torch.data import mnist as tmnist
+from inverse_flow_tpu_torch.data import synthetic as tsynthetic
+from inverse_flow_tpu_torch.train.config import ExperimentConfig
+
+
+def _batches(loader):
+    return [b.copy() for b in loader]
+
+
+def _assert_same_batches(ours, ref):
+    assert len(ours) == len(ref)
+    assert ours.data_shape == ref.data_shape
+    a, b = _batches(ours), _batches(ref)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype == np.float32
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("shape,seed", [((1, 28, 28), 0), ((3, 8, 6), 7)])
+def test_smooth_images_match_jax(shape, seed):
+    np.testing.assert_array_equal(tsynthetic.smooth_images(5, shape, seed),
+                                  jsynthetic.smooth_images(5, shape, seed))
+
+
+@pytest.mark.parametrize("n,batch,shuffle,drop_last", [
+    (11, 4, False, False), (11, 4, False, True), (3, 4, False, True),
+    (12, 4, True, True), (13, 5, True, False)])
+def test_array_loader_matches_jax(n, batch, shuffle, drop_last):
+    data = np.random.RandomState(n).randint(0, 256, (n, 1, 3, 3))
+    data = data.astype(np.float32)
+    kw = dict(shuffle=shuffle, seed=3, drop_last=drop_last)
+    ours = tloader.ArrayLoader(data, batch, **kw)
+    ref = jloader.ArrayLoader(data, batch, native_prefetch=False, **kw)
+    for _ in range(2):                  # a second epoch reshuffles
+        _assert_same_batches(ours, ref)
+
+
+def _write_idx(path, arr):
+    head = (0x0800 | arr.ndim).to_bytes(4, "big") + b"".join(
+        d.to_bytes(4, "big") for d in arr.shape)
+    with gzip.open(path, "wb") as f:
+        f.write(head + arr.astype(np.uint8).tobytes())
+
+
+@pytest.mark.parametrize("files", [False, True])
+def test_mnist_load_data_matches_jax(files, tmp_path, monkeypatch):
+    """Without the idx files both fall back to the same synthetic split;
+    with them both read the same images and split them alike."""
+    monkeypatch.setenv("IFT_DATA_DIR", str(tmp_path))
+    if files:
+        os.makedirs(tmp_path / "mnist")
+        rs = np.random.RandomState(0)
+        _write_idx(tmp_path / "mnist" / "train-images-idx3-ubyte.gz",
+                   rs.randint(0, 256, (30, 28, 28)))
+        _write_idx(tmp_path / "mnist" / "t10k-images-idx3-ubyte.gz",
+                   rs.randint(0, 256, (7, 28, 28)))
+        kw = dict(batch_size=4, train_split=20)
+        ours, ref = tmnist.load_data(**kw), jmnist.load_data(**kw)
+    else:
+        with pytest.warns(UserWarning, match="synthetic"):
+            ours = tmnist.load_data(batch_size=100)
+        with pytest.warns(UserWarning, match="synthetic"):
+            ref = jmnist.load_data(batch_size=100)
+    np.testing.assert_array_equal(ours[0].data, ref[0].data)
+    assert ours[0].shuffle and ours[0].drop_last
+    for a, b in zip(ours[1:], ref[1:]):
+        _assert_same_batches(a, b)
+
+
+def test_experiment_config_defaults_match_jax():
+    ref = JaxConfig()
+    for f in dataclasses.fields(ExperimentConfig):
+        assert getattr(ExperimentConfig(), f.name) == getattr(ref, f.name)

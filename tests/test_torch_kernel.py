@@ -1,0 +1,104 @@
+"""The chain kernel's wrapper, and the CUDA kernel on the card.
+
+This file imports no JAX, so the card's tests run where JAX is not
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel.py
+
+(``--noconftest``: the suite's conftest.py sets JAX up). Without a card the
+``cuda`` tests skip. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
+float32 round-off of a solve whose outputs are of order 1-10.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from inverse_flow_tpu_torch.ops import fused_chain as tfc
+from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
+
+# the shapes and orders of chip_smoke.py's kernel phase: both flagship
+# solve shapes, the padded tail of (8, 7, 7), both scan directions, and a
+# four-order chain
+CASES = [
+    ((4, 14, 14), ("TL",)),
+    ((8, 7, 7), ("TL",)),
+    ((8, 7, 7), ("BR",)),
+    ((4, 14, 14), ("TL", "TR", "BL", "BR")),
+]
+IDS = ["4x14x14-TL", "8x7x7-TL", "8x7x7-BR", "4x14x14-unit"]
+
+
+def _inputs(chw, n, b=3, seed=0):
+    rs = np.random.RandomState(seed)
+    c = chw[0]
+    x = rs.randn(b, *chw).astype(np.float32)
+    ws = [0.1 * rs.randn(c, c, 3, 3).astype(np.float32) for _ in range(n)]
+    return x, ws
+
+
+def _tol(y):
+    return 1e-5 * max(1.0, float(np.abs(y).max()))
+
+
+def _args(chw, orders, b, device, seed=5):
+    x, ws = _inputs(chw, len(orders), b=b, seed=seed)
+    w_effs = tuple(apply_mask(torch.from_numpy(w).to(device)) for w in ws)
+    return tfc.chain_inputs(torch.from_numpy(x).to(device), w_effs, orders)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_chain_phases_cpu_is_the_plain_version():
+    args = _args((8, 7, 7), ("BR",), 2, "cpu")
+    before = tfc.chain_phases.launches
+    y = tfc.chain_phases(*args)
+    assert tfc.chain_phases.launches == before
+    assert torch.equal(y, tfc.chain_phases_reference(*args))
+
+
+def test_chain_phases_rejects_other_devices():
+    args = _args((4, 14, 14), ("TL",), 2, "cpu")
+    meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError):
+        tfc.chain_phases(*meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chw,orders", CASES, ids=IDS)
+def test_kernel_matches_reference(cuda_device, chw, orders):
+    """The CUDA kernel against its plain version, on the card, at B=100."""
+    args = _args(chw, orders, 100, cuda_device)
+    before = tfc.chain_phases.launches
+    with torch.no_grad():
+        y = tfc.chain_phases(*args)
+    torch.cuda.synchronize()
+    assert tfc.chain_phases.launches == before + 1
+    ref = tfc.chain_phases_reference(*args)
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_batch_and_checks(cuda_device):
+    """A batch that is not a multiple of the kernel's batch tile, and the
+    wrapper's refusals: grad, dtype, layout."""
+    args = _args((8, 7, 7), ("TL", "BL"), 7, cuda_device)
+    y = tfc.chain_phases(*args)
+    ref = tfc.chain_phases_reference(*args)
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+    xb, t_all, g_all, dirs, kcw, pad_cw = args
+    with pytest.raises(NotImplementedError):
+        tfc.chain_phases(xb.clone().requires_grad_(), t_all, g_all, dirs,
+                         kcw, pad_cw)
+    with pytest.raises(TypeError):
+        tfc.chain_phases(xb.double(), t_all, g_all, dirs, kcw, pad_cw)
+    with pytest.raises(ValueError):
+        tfc.chain_phases(xb.transpose(0, 1), t_all, g_all, dirs, kcw,
+                         pad_cw)
