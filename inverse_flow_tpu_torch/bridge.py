@@ -1,10 +1,11 @@
-"""Weight bridge from the JAX package to the port.
+"""Weight bridge between the JAX package and the port, both ways.
 
 The port's parameter names follow the JAX params pytree. The JAX flow's
 params are a list with one pytree per layer, and the port's parameter
 ``layers[i].steps.1.w`` is ``params[i]["steps"][1]["w"]`` there. So the
 bridge flattens each layer's pytree into dotted names and copies leaf by
-leaf.
+leaf (:func:`params_from_jax`), and rebuilds the pytree from the dotted
+names, an integer key making a list (:func:`params_to_jax`).
 """
 
 from __future__ import annotations
@@ -45,3 +46,30 @@ def params_from_jax(flow, jax_params):
                                  f"vs JAX {tuple(src.shape)}")
             p.copy_(src)
     return flow
+
+
+def _unflatten(named):
+    tree = {}
+    for name, value in named:
+        node, keys = tree, name.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(tree)
+
+
+@torch.no_grad()
+def params_to_jax(flow):
+    """The JAX params of ``flow``: a list with one pytree per layer, leaves
+    as float32 numpy arrays (a layer without parameters gives ``{}``)."""
+    return [_unflatten((n, p.detach().cpu().numpy())
+                       for n, p in layer.named_parameters())
+            for layer in flow.layers]

@@ -34,6 +34,9 @@ class FlowLayer(nn.Module):
 
     #: marks layers of the preprocessing group
     is_preprocessing: bool = False
+    #: layers whose reconstruction loss joins the training loss (none
+    #: ported yet: ``Experiment.train_step`` raises on one)
+    has_recon_loss: bool = False
 
     def own_params(self):
         return dict(self.named_parameters(recurse=False))

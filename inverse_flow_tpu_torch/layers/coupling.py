@@ -3,7 +3,9 @@
 Port of ``inverse_flow_tpu/layers/coupling.py:Coupling`` (float32): net
 conv3x3 -> ReLU -> conv1x1 -> ReLU -> Conv2dZero (zero init, ReZero
 log-scale); ``log_s = 2*tanh(h/2)``; even/odd channel split of the net
-output.
+output. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
+``jax.checkpoint`` in the JAX layer): its activations are recomputed in
+the backward instead of kept; the values are the same.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .base import FlowLayer, sum_except_batch
 
@@ -27,9 +30,7 @@ def _kaiming_uniform(shape, generator, device):
 
 class Coupling(FlowLayer):
     """Affine coupling on channel halves: the first C//2 channels of
-    ``input_size`` (C, H, W) condition the transform of the rest.
-    ``remat_net`` (backward memory) has no effect on the forward pass and
-    is accepted for signature parity."""
+    ``input_size`` (C, H, W) condition the transform of the rest."""
 
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  logscale_factor: float = 3.0, remat_net: bool = False,
@@ -38,6 +39,7 @@ class Coupling(FlowLayer):
         c = input_size[0]
         self.half_channels = c // 2
         self.logscale_factor = logscale_factor
+        self.remat_net = remat_net
         self.w1 = _kaiming_uniform((width, c // 2, 3, 3), generator, device)
         self.w2 = _kaiming_uniform((c, width, 1, 1), generator, device)
         self.w3 = nn.Parameter(torch.zeros((c, c, 3, 3), device=device))
@@ -53,7 +55,12 @@ class Coupling(FlowLayer):
 
     def forward_with(self, p, x, generator=None):
         x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
-        h = self._net(p, x1)
+        if self.remat_net and torch.is_grad_enabled():
+            # the net draws no random numbers: no RNG state to replay
+            h = checkpoint(self._net, p, x1, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = self._net(p, x1)
         log_s = 2.0 * torch.tanh(h[:, ::2] / 2.0)
         z2 = x2 * torch.exp(log_s) + h[:, 1::2]
         return torch.cat([x1, z2], dim=1), sum_except_batch(log_s)

@@ -4,9 +4,11 @@ Port of ``inverse_flow_tpu/layers/inv_flow.py:InvFlow``/``InvFlowNoPad``,
 training direction, exact solver. The solve runs through
 :func:`~inverse_flow_tpu_torch.ops.fused_chain.fused_chain_solve` with one
 order: the chain kernel on a CUDA tensor, its plain version on a CPU
-tensor. ldj is exactly 0 (the masked conv is unit lower triangular in
-raster order). The weights are stored in canonical TL orientation; the
-order's flips are absorbed into the solve matrices.
+tensor, in the forward and again (BR, transposed kernel) in the backward;
+autograd carries the weight gradient back through ``apply_mask``. ldj is
+exactly 0 (the masked conv is unit lower triangular in raster order). The
+weights are stored in canonical TL orientation; the order's flips are
+absorbed into the solve matrices.
 """
 
 from __future__ import annotations

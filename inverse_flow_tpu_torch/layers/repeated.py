@@ -3,7 +3,10 @@ axis, as in the JAX params pytree.
 
 Port of ``inverse_flow_tpu/layers/repeated.py:RepeatedBlock`` (forward and
 ``data_init``): the JAX ``lax.scan`` over the stacked parameters becomes a
-loop over k that hands each step layer the k-th slices.
+loop over k that hands each step layer the k-th slices; indexing the
+stacked parameters is differentiable, so their gradients stack as the
+JAX ones do. ``remat`` checkpoints each step, as ``jax.checkpoint`` on the
+scan body: its activations are recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Callable, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .base import FlowLayer, zeros_ldj
 
@@ -22,10 +26,11 @@ class RepeatedBlock(FlowLayer):
     its own initial parameters, which are then stacked."""
 
     def __init__(self, make_step: Callable[[], Sequence[FlowLayer]],
-                 n_repeats: int):
+                 n_repeats: int, remat: bool = False):
         super().__init__()
         steps = [list(make_step()) for _ in range(n_repeats)]
         self.n_repeats = n_repeats
+        self.remat = remat
         self.steps = nn.ModuleList(steps[0])
         for j, layer in enumerate(self.steps):
             for name in list(layer.own_params()):
@@ -37,12 +42,22 @@ class RepeatedBlock(FlowLayer):
         return [{n: t[k] for n, t in layer.own_params().items()}
                 for layer in self.steps]
 
+    def _step(self, k, x):
+        ldj = zeros_ldj(x)
+        for layer, pk in zip(self.steps, self._step_params(k)):
+            x, l = layer.forward_with(pk, x)
+            ldj = ldj + l
+        return x, ldj
+
     def forward_with(self, p, x, generator=None):
         ldj = zeros_ldj(x)
         for k in range(self.n_repeats):
-            for layer, pk in zip(self.steps, self._step_params(k)):
-                x, l = layer.forward_with(pk, x)
-                ldj = ldj + l
+            if self.remat and torch.is_grad_enabled():
+                x, l = checkpoint(self._step, k, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, l = self._step(k, x)
+            ldj = ldj + l
         return x, ldj
 
     @torch.no_grad()

@@ -28,9 +28,12 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
                num_blocks=2, block_size=16, coupling_width=512,
                actnorm=True, split_prior=True, activation="Spline",
                n_bins=5, tail_bound=20.0, if_kernel_size=3, alpha=1e-7,
-               coupling_remat=True, generator=None, device=None):
-    """Glow stack with the JAX builder's arguments and defaults. The
-    parameters are drawn from ``generator`` on ``device``."""
+               remat=False, coupling_remat=True, generator=None,
+               device=None):
+    """Glow stack with the JAX builder's arguments and defaults
+    (``remat``: checkpoint every step of a block; ``coupling_remat``:
+    checkpoint every coupling net). The parameters are drawn from
+    ``generator`` on ``device``."""
     if step_kind != "inv_conv_no_pad":
         raise NotImplementedError(f"step kind {step_kind!r} is not ported")
     if activation != "Spline":
@@ -52,7 +55,7 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
                                  remat_net=coupling_remat, **init))
             return step
 
-        layers.append(RepeatedBlock(make_step, block_size))
+        layers.append(RepeatedBlock(make_step, block_size, remat=remat))
         if split_prior and level < num_blocks - 1:
             layers.append(SplitPrior(size, width=coupling_width,
                                      remat_net=coupling_remat, **init))

@@ -1,12 +1,12 @@
 """Chained multi-order inverse-conv solve on the hand-written chain kernel.
 
-PyTorch port of ``inverse_flow_tpu/ops/fused_chain.py`` (forward). Each
-pad order solves ``y = F_o^{-1} solve_TL(F_o x, w_o)`` with ``F_o`` a flip
-of H and/or W. The flips are permutations that respect the row-blocked
-layout, so they are absorbed into the solve matrices (conjugated by
-``_rows_perm``), and an H-flipped order scans its blocks top
-down and carries the first KH-1 rows instead of the last. Every order then
-runs the same recurrence on unflipped data:
+PyTorch port of ``inverse_flow_tpu/ops/fused_chain.py``. Each pad order
+solves ``y = F_o^{-1} solve_TL(F_o x, w_o)`` with ``F_o`` a flip of H and/or
+W. The flips are permutations that respect the row-blocked layout, so they
+are absorbed into the solve matrices (conjugated by ``_rows_perm``), and an
+H-flipped order scans its blocks top down and carries the first KH-1 rows
+instead of the last. Every order then runs the same recurrence on
+unflipped data:
 
     y_b = x_b @ T_eff^T - carry @ G_eff^T
 
@@ -14,14 +14,22 @@ runs the same recurrence on unflipped data:
 CUDA tensor, and :func:`chain_phases_reference`, the same function in plain
 torch, on a CPU tensor. The operator build (:func:`_phase_matrices`) is
 plain torch on either device.
+
+The backward (:class:`FusedChainSolve`) is again a chain: the cotangent
+walks the orders in reverse, each with its complementary orientation
+(``_COMPLEMENT``: flip both axes) and its channel-transposed kernel, so the
+same kernel runs it; the weight gradients are one conv weight-gradient per
+order on the phase outputs that the forward launch keeps.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from .inv_conv import _block_toeplitz_inverse, _prev_block, _row_matrices
+from .inv_conv import (_block_toeplitz_inverse, _prev_block, _row_matrices,
+                       _solve_wgrad, _transpose_kernel)
 
 # (flip_h, flip_w) per pad order
 ORDER_FLAGS = {
@@ -31,6 +39,9 @@ ORDER_FLAGS = {
     "BR": (True, True),
 }
 
+# flip2 . F_o: the orientation of order o's backward solve
+_COMPLEMENT = {"TL": "BR", "TR": "BL", "BL": "TR", "BR": "TL"}
+
 # the kernel keeps a few batch rows of one block and its carry in shared
 # memory (csrc/chain_solve.cu:kMaxRcw); wider blocks need a tiled design
 MAX_RCW = 2048
@@ -38,7 +49,8 @@ MAX_RCW = 2048
 
 def choose_block_rows_fused(h: int, cw: int, kh: int):
     """(rows per block, zero-padded tail rows), or None when no block size
-    with at least two blocks exists.
+    with at least two blocks exists (then :func:`chain_inputs` runs the
+    chain as one block of H rows).
 
     H need not be a multiple of R: the last block's tail is zero-padded and
     re-zeroed after every phase. Exact divisors are preferred; R >= KH-1
@@ -62,6 +74,11 @@ def _cw_perm(width, c, fw, device):
     if not fw:
         return i
     return (width - 1 - i // c) * c + i % c
+
+
+def _flip_axes(order):
+    fh, fw = ORDER_FLAGS[order]
+    return tuple(a for a, f in ((2, fh), (3, fw)) if f)
 
 
 def _rows_perm(rows, width, c, fh, fw, device):
@@ -170,8 +187,8 @@ def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0):
             f"kcw={kcw} pad_cw={pad_cw}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "chain_phases: the CUDA kernel has no backward yet; run it "
-            "under torch.no_grad() or torch.inference_mode()")
+            "chain_phases: the raw kernel call has no autograd; use "
+            "fused_chain_solve, whose backward launches the kernel again")
     from ._build import chain_solve_lib
 
     y = torch.empty((n, nb, b, rcw), dtype=torch.float32, device=xb.device)
@@ -198,28 +215,67 @@ chain_phases.launches = 0
 def chain_inputs(x, w_effs, orders):
     """The arguments of :func:`chain_phases` for solving ``x`` (B, C, H, W)
     through the chain: ``(xb, t_all, g_all, dirs, kcw, pad_cw)``. Row
-    blocks cover the zero-padded height ceil(H/R)*R."""
+    blocks cover the zero-padded height ceil(H/R)*R. A height with no
+    split into two blocks of at least KH-1 rows runs as one block of H
+    rows: no carry is read, so its width is capped at the block's."""
     b, c, h, width = x.shape
     kh = w_effs[0].shape[2]
-    rows = choose_block_rows_fused(h, c * width, kh)
-    if rows is None:
-        raise NotImplementedError(
-            f"fused_chain_solve: height {h} is too small for two row blocks "
-            f"of at least {kh - 1} rows")
-    r, pad = rows
+    r, pad = choose_block_rows_fused(h, c * width, kh) or (h, 0)
     phases = [_phase_matrices(w, o, width, r) for w, o in zip(w_effs, orders)]
+    kcw = min((kh - 1) * c * width, r * c * width)
     t_all = torch.stack([p[0] for p in phases]).contiguous()
-    g_all = torch.stack([p[1] for p in phases]).contiguous()
+    g_all = torch.stack([p[1][:, :kcw] for p in phases]).contiguous()
     dirs = tuple(ORDER_FLAGS[o][0] for o in orders)
     xb = _to_blocks(F.pad(x.float(), (0, 0, 0, pad)), r)
-    return xb, t_all, g_all, dirs, (kh - 1) * c * width, pad * c * width
+    return xb, t_all, g_all, dirs, kcw, pad * c * width
+
+
+class FusedChainSolve(torch.autograd.Function):
+    """The chain solve with its hand-written VJP, for N <= 4 orders.
+
+    Port of ``_fused_fwd``/``_fused_bwd``. forward: one
+    :func:`chain_phases` launch; every phase output is kept. backward: a
+    second launch on ``(gy, transposed kernels in reverse, complementary
+    orders)``, whose phase ``n-1-l`` is the cotangent on the input of
+    order ``l``; then ``dW_l = -wgrad(y_l, dx_l)`` in order ``l``'s
+    canonical (TL) frame."""
+
+    @staticmethod
+    def forward(ctx, orders, x, *w_effs):
+        phases = chain_phases(*chain_inputs(x, w_effs, orders))
+        ctx.orders, ctx.x_shape = orders, x.shape
+        ctx.save_for_backward(phases, *w_effs)
+        _, c, h, width = x.shape
+        return _from_blocks_trim(phases[-1], c, h, width)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        phases, *w_effs = ctx.saved_tensors
+        orders = ctx.orders
+        _, c, h, width = ctx.x_shape
+        n = len(orders)
+        kh, kw = w_effs[0].shape[2], w_effs[0].shape[3]
+        back_orders = tuple(_COMPLEMENT[o] for o in reversed(orders))
+        back_weffs = tuple(_transpose_kernel(w) for w in reversed(w_effs))
+        gphases = chain_phases(*chain_inputs(gy, back_weffs, back_orders))
+        dws = []
+        for l, order in enumerate(orders):
+            ax = _flip_axes(order)
+            dx_l = _from_blocks_trim(gphases[n - 1 - l], c, h, width)
+            y_l = _from_blocks_trim(phases[l], c, h, width)
+            if ax:
+                dx_l, y_l = dx_l.flip(ax), y_l.flip(ax)
+            dws.append(_solve_wgrad(y_l, dx_l, kh, kw))
+        dx = _from_blocks_trim(gphases[-1], c, h, width)
+        return (None, dx, *dws)
 
 
 def fused_chain_solve(x, w_effs, orders):
     """``y = (solve_{o_n} . ... . solve_{o_1})(x)``: each ``solve_o`` is the
     orientation-``o`` inverse of the masked conv with (already masked)
     kernel ``w_effs[i]``. The chain's ldj is 0 (every factor is unit
-    triangular). Raises on a shape the kernel does not take."""
-    _, c, h, width = x.shape
-    phases = chain_phases(*chain_inputs(x, w_effs, orders))
-    return _from_blocks_trim(phases[-1], c, h, width)
+    triangular). Differentiable in ``x`` and ``w_effs`` through
+    :class:`FusedChainSolve`. Raises on a shape the kernel does not
+    take."""
+    return FusedChainSolve.apply(tuple(orders), x, *w_effs)

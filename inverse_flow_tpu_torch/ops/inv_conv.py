@@ -2,7 +2,7 @@
 row-blocked operator build that the chain solve runs on.
 
 PyTorch port of ``inverse_flow_tpu/ops/inv_conv.py`` (the subset the
-scoring path needs). In raster order the masked conv ``T`` is block-banded
+training path needs). In raster order the masked conv ``T`` is block-banded
 lower triangular, so ``y = T^{-1} x`` is solved row-blocked:
 
   1. per-row dependence matrices ``mats`` (KH, CW, CW) from the kernel;
@@ -15,9 +15,16 @@ Step 3 runs in the chain kernel (``ops/fused_chain.py``);
 :func:`solve_ungrouped` here is the plain composition, kept as a second
 reference beside :func:`masked_conv_apply`.
 
-Rows are flattened as (w, c) -> w*C + c, so ``M0`` is elementwise
-unit-lower-triangular for a canonically masked kernel and its inverse is
-one triangular solve.
+Rows are flattened as (w, c) -> w*C + c, so ``M0`` is block-lower over
+pixels with a unit diagonal. Its diagonal (C, C) blocks are lower
+triangular for a canonically masked kernel and upper triangular for its
+channel transpose, the kernel of the backward solve.
+
+The solve's VJP (the JAX ``_inv_conv_bwd``) is again a solve:
+``dx = T^{-T} g`` is the BR-oriented solve of ``g`` with the
+channel-transposed kernel (:func:`_transpose_kernel`), and
+``dW = -wgrad(y_padTL, dx)`` (:func:`_solve_wgrad`), a convolution with the
+batch as the contraction.
 """
 
 from __future__ import annotations
@@ -98,10 +105,22 @@ def _choose_block_rows(h: int, cw: int, kh: int) -> int:
 
 
 def _tri_inverse(m0):
-    """``M0^{-1}`` for an elementwise lower-triangular ``M0`` (the
-    canonically masked kernel's within-row matrix, unit diagonal)."""
-    eye = torch.eye(m0.shape[-1], dtype=m0.dtype, device=m0.device)
-    return torch.linalg.solve_triangular(m0, eye, upper=False)
+    """Exact ``M0^{-1}`` for ``M0 = I + N`` with ``N`` nilpotent: the
+    within-row matrix of a masked kernel (N strictly lower) and of its
+    channel transpose (N block-lower over pixels, strictly upper within
+    the diagonal blocks) alike.
+
+    Newton-Schulz ``X <- X (2I - M0 X)`` from ``X = 2I - M0``: after k
+    steps X is ``sum_{j < 2^(k+1)} (-N)^j``, which is exact once
+    ``2^(k+1) >= CW``, as in the JAX package. Chosen over a general LU
+    (``torch.linalg.inv``) because it is matmuls only: the same ops on
+    the CPU and the card, no pivoting and no host sync."""
+    n = m0.shape[-1]
+    eye2 = 2.0 * torch.eye(n, dtype=m0.dtype, device=m0.device)
+    x = eye2 - m0
+    for _ in range(max(1, (n - 1).bit_length() - 1)):
+        x = x @ (eye2 - m0 @ x)
+    return x
 
 
 def _toeplitz_d_blocks(mats, r_rows: int):
@@ -178,3 +197,21 @@ def solve_ungrouped(x, w_eff):
         c_all = _scan_blocks(c_all, t_inv @ _prev_block(mats, r), kcw)
     y_rows = c_all.reshape(b, nb * r, cw)[:, :h]
     return y_rows.reshape(b, h, width, c).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Backward pieces: transposed kernel and weight gradient
+# ---------------------------------------------------------------------------
+
+def _transpose_kernel(w_eff):
+    """Channel transpose (groups=1): the kernel of ``T^T``'s solve."""
+    return w_eff.transpose(0, 1)
+
+
+def _solve_wgrad(y, dx, kh: int, kw: int):
+    """``dW = -wgrad(y_padTL, dx)``: the weight cotangent of ``y = T^{-1}
+    x`` given ``dx = T^{-T} g``; ``dK[c, c', a, b] = sum_{n, h, w}
+    dx[n, c, h, w] * y_pad[n, c', h+a, w+b]``, in float32."""
+    y_pad = F.pad(y, (kw - 1, 0, kh - 1, 0))
+    return -torch.nn.grad.conv2d_weight(y_pad, (dx.shape[1], y.shape[1], kh,
+                                                kw), dx)

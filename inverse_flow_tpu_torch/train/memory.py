@@ -1,0 +1,41 @@
+"""Device-memory tracking.
+
+Port of ``inverse_flow_tpu/train/memory.py:MemoryTracker`` on the CUDA
+caching allocator's counters: allocated bytes, and the peak since the
+previous snapshot (``torch.cuda.max_memory_allocated``, reset by
+``reset_peak_memory_stats`` after each read, so each epoch reports its own
+peak). On a CPU device there is nothing to read, and a snapshot raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+class MemoryTracker:
+    """Allocated / peak device memory across epochs, in MB."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.available = self.device.type == "cuda"
+        self._base = 0
+        if self.available:
+            self._base = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def snapshot(self) -> Dict[str, float]:
+        if not self.available:
+            raise RuntimeError("MemoryTracker: no CUDA device to read")
+        mb = 1.0 / (1024 * 1024)
+        allocated = torch.cuda.memory_allocated(self.device)
+        snap = {
+            "allocated_mb": allocated * mb,
+            "peak_mb": torch.cuda.max_memory_allocated(self.device) * mb,
+            "delta_mb": (allocated - self._base) * mb,
+            "limit_mb": torch.cuda.get_device_properties(
+                self.device).total_memory * mb,
+        }
+        torch.cuda.reset_peak_memory_stats(self.device)
+        return snap

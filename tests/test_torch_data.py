@@ -88,6 +88,8 @@ def test_mnist_load_data_matches_jax(files, tmp_path, monkeypatch):
 
 
 def test_experiment_config_defaults_match_jax():
+    assert ([f.name for f in dataclasses.fields(ExperimentConfig)]
+            == [f.name for f in dataclasses.fields(JaxConfig)])
     ref = JaxConfig()
     for f in dataclasses.fields(ExperimentConfig):
         assert getattr(ExperimentConfig(), f.name) == getattr(ref, f.name)

@@ -7,8 +7,11 @@ installed:
 
 (``--noconftest``: the suite's conftest.py sets JAX up). Without a card the
 ``cuda`` tests skip. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
-float32 round-off of a solve whose outputs are of order 1-10.
+float32 round-off of a solve whose outputs are of order 1-10; weight
+gradients (sums over batch and image) to 1e-4 * max|dW_ref|.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -102,3 +105,51 @@ def test_kernel_ragged_batch_and_checks(cuda_device):
     with pytest.raises(ValueError):
         tfc.chain_phases(xb.transpose(0, 1), t_all, g_all, dirs, kcw,
                          pad_cw)
+
+
+def _vjp(chw, orders, device, b=100):
+    """dx and every dW of ``fused_chain_solve`` under a random cotangent."""
+    x, ws = _inputs(chw, len(orders), b=b, seed=11)
+    gy = np.random.RandomState(12).randn(*x.shape).astype(np.float32)
+    xt = torch.from_numpy(x).to(device).requires_grad_()
+    w_effs = [apply_mask(torch.from_numpy(w).to(device)).requires_grad_()
+              for w in ws]
+    y = tfc.fused_chain_solve(xt, w_effs, orders)
+    return torch.autograd.grad(y, [xt, *w_effs],
+                               torch.from_numpy(gy).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chw,orders", CASES, ids=IDS)
+def test_backward_kernel_matches_reference(cuda_device, chw, orders):
+    """The backward through the kernel (two launches: forward and the
+    backward's solve) against the same autograd Function on the plain
+    recurrence, on the card, at B=100."""
+    before = tfc.chain_phases.launches
+    dx, *dws = _vjp(chw, orders, cuda_device)
+    torch.cuda.synchronize()
+    assert tfc.chain_phases.launches == before + 2
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        ref_dx, *ref_dws = _vjp(chw, orders, cuda_device)
+    assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
+    for d, r in zip(dws, ref_dws):
+        assert (d - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chw", [(8, 2, 2), (2, 1, 5)])
+def test_kernel_single_block(cuda_device, chw):
+    """Heights with no split into two row blocks run as one block (the
+    carry width capped at the block's when H < KH-1), forward and
+    backward, on the card."""
+    args = _args(chw, ("TL", "BR"), 9, cuda_device)
+    assert args[0].shape[0] == 1
+    y = tfc.chain_phases(*args)
+    ref = tfc.chain_phases_reference(*args)
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+    dx, *dws = _vjp(chw, ("BR",), cuda_device, b=9)
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        ref_dx, *ref_dws = _vjp(chw, ("BR",), cuda_device, b=9)
+    assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
+    for d, r in zip(dws, ref_dws):
+        assert (d - r).abs().max() <= 1e-4 * r.abs().max()
