@@ -3,22 +3,30 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the flagship model ``if_glow_mnist`` at
-full width (L=2 blocks x K=16 steps, coupling width 512, RQ spline 5 bins,
-batch 100; random weights from seed 0): scoring (``Experiment.
-maybe_data_init`` -> ``Flow.cheap_log_prob`` -> ``to_bpd``) and training
-(``maybe_data_init`` -> ``train_epoch`` -> ``train_step``: loss, backward,
-Adam with warmup and ExponentialLR, weight clamp 0.01), in phases:
+Drives the port's paths on two models at full width, random weights from
+seed 0, batch 100:
+
+* the flagship ``if_glow_mnist`` (L=2 blocks x K=16 steps of
+  ``InvFlowNoPad``, coupling width 512, RQ spline 5 bins): scoring
+  (``Experiment.maybe_data_init`` -> ``Flow.cheap_log_prob`` -> ``to_bpd``)
+  and training (``maybe_data_init`` -> ``train_epoch`` -> ``train_step``:
+  loss, backward, Adam with warmup and ExponentialLR, weight clamp 0.01);
+* ``imagenet32`` (``bench.py``'s config: L=3 x K=48 ``InvFlowUnit``, the
+  four-order chain, width 128, SLR; Adam lr 1e-5, no scheduler, no clamp)
+  on synthetic (3, 32, 32) images: data init, eval, training,
+
+in phases:
 
   1. device: the card's name and power limit;
   2. build: the chain kernel from ``inverse_flow_tpu_torch/csrc``;
   3. kernel: the kernel against its plain PyTorch version on the card at
-     the main path's shapes (and both scan directions, the padded tail and
-     a four-order chain), with its time beside the plain version's;
+     the flagship's shapes (and both scan directions, the padded tail and
+     a four-order chain), with its time beside the plain version's and the
+     library call's (:func:`library_chain`);
   4. backward: ``FusedChainSolve``'s dx and dW through the kernel against
      the same Function on the plain recurrence, at the kernel cases of
      phase 3; the backward's launch (BR, transposed kernel) timed against
-     its plain version;
+     its plain version and the library call;
   5. slice: data init and eval over 3 validation batches, BPD, the kernel's
      launch count, log p(x) against the same model on the plain chain, and
      eval ms/batch;
@@ -29,7 +37,12 @@ Adam with warmup and ExponentialLR, weight clamp 0.01), in phases:
      loss finite, the launch count, every weight within the clamp, the
      step-1 gradients against the plain chain, train ms/step against the
      plain chain, peak memory, and the device's time and launches per
-     step (:func:`phase_train`).
+     step (:func:`phase_train`);
+  8. imagenet32: the four-order kernel, forward and backward, at the
+     model's three solve shapes against its plain version and timed
+     beside it and the library call; data init and one eval batch; one
+     epoch of 3 steps with launch counts, losses, step-1 gradients, train
+     ms/step, peak memory and a profiled step (:func:`phase_imagenet32`).
 
 Every phase prints one line or more; the line before the last is the
 kernel summary as JSON, the last ``{"ok": true, "device": ...}``. Any
@@ -40,6 +53,7 @@ matmuls and cuDNN.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -59,10 +73,23 @@ TRAIN_EXAMPLES = 1000
 FLAGSHIP_SHAPES = [(4, 14, 14), (8, 7, 7)]
 KERNEL_CASES = [((4, 14, 14), ("TL",)), ((8, 7, 7), ("TL",)),
                 ((8, 7, 7), ("BR",)), ((4, 14, 14), ("TL", "TR", "BL", "BR"))]
+# imagenet32: the InvFlowUnit solve shapes of its three levels, the unit's
+# orders, and the examples of its train epoch (3 steps)
+UNIT_SHAPES = [(12, 16, 16), (24, 8, 8), (48, 4, 4)]
+UNIT = ("TL", "TR", "BL", "BR")
+UNIT_TRAIN_EXAMPLES = 300
 # |log p(x)| differences from summation order alone, float32, 38 layers
 LOGPX_RTOL = 1e-4
 # norm-relative gradient differences, kernel vs plain chain, float32
 GRAD_RTOL = 1e-4
+# the library call (cuBLAS trsm on the dense operator) against the kernel:
+# another summation order over up to 3,072 terms per output, four solves
+# chained; a gross-error check of the yardstick, not a parity bound
+LIBRARY_RTOL = 1e-3
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
+# tensor cores, and HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg):
@@ -94,6 +121,234 @@ def ab_ms(fns, reps, rounds, torch):
         for k in (keys if r % 2 == 0 else keys[::-1]):
             times[k].append(time_ms(fns[k], reps, torch))
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def raster_perm(c, h, w, order, torch, device=None):
+    """The NCHW-flattened indices of one image in ``order``'s raster
+    order: rows of H (reversed when the order flips H), pixels of W
+    (reversed when it flips W), channels innermost. In that order the
+    order's masked conv is unit lower triangular."""
+    from inverse_flow_tpu_torch.ops.fused_chain import ORDER_FLAGS
+
+    fh, fw = ORDER_FLAGS[order]
+    hh, ww, cc = (torch.arange(n, device=device) for n in (h, w, c))
+    hh, ww = (hh.flip(0) if fh else hh), (ww.flip(0) if fw else ww)
+    return ((cc[None, None, :] * h + hh[:, None, None]) * w
+            + ww[None, :, None]).reshape(-1)
+
+
+def library_chain(v, w_effs, orders, backward, torch):
+    """The library call that computes the chain kernel's function: one
+    ``torch.linalg.solve_triangular`` (cuBLAS trsm) per order on the dense
+    (CHW, CHW) operator in that order's raster order, with a row gather
+    between orders. Forward: ``y`` of the chain on ``v`` (B, C, H, W).
+    ``backward``: the chain's transpose applied to the cotangent ``v``,
+    the orders reversed, each ``upper=True`` on the transposed operator:
+    the function of the backward's launch. The operators and the column
+    layout (CHW, B) are built here, outside the timed call; returns the
+    call, whose result :func:`from_columns` brings back to NCHW."""
+    from inverse_flow_tpu_torch.ops.inv_conv import dense_operator
+
+    b, c, h, w = v.shape
+    tl = raster_perm(c, h, w, "TL", torch, v.device)
+    steps = [(o, dense_operator(k, c, h, w)[tl][:, tl])
+             for o, k in zip(orders, w_effs)]
+    if backward:
+        steps = [(o, m.T.contiguous()) for o, m in reversed(steps)]
+    perms = [raster_perm(c, h, w, o, torch, v.device) for o, _ in steps]
+    inverse = [torch.argsort(p) for p in perms]
+    gathers = ([perms[0]] + [inverse[i - 1][perms[i]]
+                             for i in range(1, len(perms))] + [inverse[-1]])
+    mats = [m for _, m in steps]
+    cols = v.detach().reshape(b, -1).T.contiguous()
+
+    def call():
+        z = cols[gathers[0]]
+        for m, g in zip(mats, gathers[1:]):
+            z = torch.linalg.solve_triangular(m, z, upper=backward,
+                                              unitriangular=True)[g]
+        return z
+    return call
+
+
+def from_columns(z, shape):
+    """(CHW, B) columns -> (B, C, H, W)."""
+    return z.T.reshape(shape)
+
+
+def chain_bound(args, torch):
+    """(bound_ms, bound_by, multiply-adds per batch row) of one
+    :func:`chain_phases` launch on ``args``: the larger of the
+    multiply-adds this launch's data needs at the fp32 peak, and its bytes
+    at the HBM rate.
+
+    Multiply-adds: at every block step, for each live output column, the
+    nonzero entries of its row of T off the diagonal (T is a permuted unit
+    triangle: the diagonal is a copy and the upper half is zero), and,
+    after a scan's first block, of its row of G; each only over the live
+    columns it multiplies (a padded tail column is always zero). Bytes: x
+    read and every phase output written once, and the nonzero entries of T
+    off the diagonal and of G read once."""
+    xb, t_all, g_all, dirs, kcw, pad_cw = args
+    nb, b, rcw = xb.shape
+    t_nz = (t_all != 0) & ~torch.eye(rcw, dtype=torch.bool,
+                                     device=t_all.device)
+    g_nz = g_all != 0
+    full = torch.ones(rcw, dtype=torch.bool, device=t_all.device)
+    tail = torch.arange(rcw, device=t_all.device) < rcw - pad_cw
+    fma = 0
+    for o, flip_h in enumerate(dirs):
+        prev = None
+        for i in range(nb):
+            m = nb - 1 - i if flip_h else i
+            live = tail if m == nb - 1 else full
+            fma += int(t_nz[o][live][:, live].sum())
+            if prev is not None:
+                carried = prev[:kcw] if flip_h else prev[rcw - kcw:]
+                fma += int(g_nz[o][live][:, carried].sum())
+            prev = live
+    ops_ms = 2 * fma * b / PEAK_FP32_FLOPS * 1e3
+    n_bytes = 4 * ((1 + len(dirs)) * xb.numel() + int(t_nz.sum())
+                   + int(g_nz.sum()))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", fma
+    return bytes_ms, "bytes", fma
+
+
+def time_launch(x, ws, orders, backward, reps, rounds, torch):
+    """One launch's function timed in turns on the same inputs: the
+    kernel, its plain version and the library call; the library result
+    checked against the kernel's. ``backward``: the backward's launch on
+    the cotangent ``x`` (complementary orders, transposed kernels).
+    Returns (times dict, :func:`chain_bound`'s triple, library max abs
+    err)."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    make = fused_chain.backward_inputs if backward else \
+        fused_chain.chain_inputs
+    args = make(x, ws, orders)
+    library = library_chain(x, ws, orders, backward, torch)
+    _, c, h, w = x.shape
+    with torch.inference_mode():
+        y = fused_chain._from_blocks_trim(fused_chain.chain_phases(
+            *args)[-1], c, h, w)
+        lib_err = (from_columns(library(), x.shape) - y).abs().max().item()
+        if not lib_err <= LIBRARY_RTOL * max(1.0, y.abs().max().item()):
+            fail(f"the library call disagrees with the kernel at "
+                 f"{tuple(x.shape)} {orders} (backward {backward}): "
+                 f"{lib_err}")
+        t = ab_ms({"kernel": lambda: fused_chain.chain_phases(*args),
+                   "plain": lambda: fused_chain.chain_phases_reference(
+                       *args),
+                   "library": library}, reps=reps, rounds=rounds,
+                  torch=torch)
+    return t, chain_bound(args, torch), lib_err
+
+
+def solve_operands(chw, orders, gen, dev, torch):
+    """A batch of 100 inputs (C, H, W) and one masked kernel per order,
+    of std 0.1 / sqrt(C): at every case max|y| stays near 5 while the
+    solves move y by a quarter to three fifths of |x|. (A std of 0.1
+    at C >= 12 drives four chained solves to |y| of 1e3-1e4, which would
+    loosen the ``1e-5 * max|y|`` limit as far.)"""
+    from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
+
+    c = chw[0]
+    x = torch.randn((BATCH,) + chw, generator=gen, device=dev)
+    ws = [apply_mask(0.1 / math.sqrt(c) * torch.randn(
+        (c, c, 3, 3), generator=gen, device=dev)) for _ in orders]
+    return x, ws
+
+
+def check_forward(cases, label, gen, dev, torch):
+    """The kernel against its plain version on each case's launch, to
+    ``1e-5 * max(1, max|y|)``; returns the largest error."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    max_err = 0.0
+    for chw, orders in cases:
+        args = fused_chain.chain_inputs(*solve_operands(chw, orders, gen,
+                                                        dev, torch), orders)
+        with torch.inference_mode():
+            y = fused_chain.chain_phases(*args)
+            torch.cuda.synchronize()
+            ref = fused_chain.chain_phases_reference(*args)
+        err = (y - ref).abs().max().item()
+        tol = 1e-5 * max(1.0, ref.abs().max().item())
+        max_err = max(max_err, err)
+        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+              f"{'-'.join(orders)}: max_abs_err {err:.3e} (tol {tol:.3e})",
+              flush=True)
+        if not err <= tol:
+            fail(f"chain kernel disagrees with its plain version at {chw} "
+                 f"{orders}")
+    return max_err
+
+
+def check_backward(cases, label, gen, dev, torch):
+    """``FusedChainSolve``'s dx and dW through the kernel (two launches)
+    against the same Function on the plain recurrence, to ``1e-5 *
+    max(1, max|dx|)`` and ``1e-4 * max|dW|``; returns the largest dx
+    error, which is the backward launch's last phase."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    def vjp(x, ws, orders, gy):
+        x = x.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in ws]
+        y = fused_chain.fused_chain_solve(x, ws, orders)
+        return torch.autograd.grad(y, [x, *ws], gy)
+
+    max_err = 0.0
+    for chw, orders in cases:
+        x, ws = solve_operands(chw, orders, gen, dev, torch)
+        gy = torch.randn(x.shape, generator=gen, device=dev)
+        before = fused_chain.chain_phases.launches
+        dx, *dws = vjp(x, ws, orders, gy)
+        torch.cuda.synchronize()
+        launched = fused_chain.chain_phases.launches - before
+        with plain_chain(fused_chain):
+            ref_dx, *ref_dws = vjp(x, ws, orders, gy)
+        err = (dx - ref_dx).abs().max().item()
+        tol = 1e-5 * max(1.0, ref_dx.abs().max().item())
+        dw_rel = max(((d - r).abs().max() / r.abs().max()).item()
+                     for d, r in zip(dws, ref_dws))
+        max_err = max(max_err, err)
+        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+              f"{'-'.join(orders)}: dx max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}), dW max err / max|dW| {dw_rel:.3e} (tol 1e-4); "
+              f"{launched} kernel launches", flush=True)
+        if launched != 2:
+            fail(f"expected 2 chain kernel launches (forward and backward) "
+                 f"at {chw} {orders}, got {launched}")
+        if not (err <= tol and dw_rel <= 1e-4):
+            fail(f"the backward through the kernel disagrees with the plain "
+                 f"chain at {chw} {orders}")
+    return max_err
+
+
+def time_rows(shapes, orders, backward, reps, rounds, label, gen, dev, card,
+              torch):
+    """The kernel, plain and library times of one launch at each shape,
+    with the bound (:func:`time_launch`); returns their means over the
+    shapes, which the path launches equally often."""
+    rows = []
+    for chw in shapes:
+        x, ws = solve_operands(chw, orders, gen, dev, torch)
+        t, (bound, bound_by, fma), lib_err = time_launch(
+            x, ws, orders, backward, reps, rounds, torch)
+        rows.append((t["kernel"], t["plain"], t["library"], bound))
+        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+              f"{'-'.join(orders)}{' backward launch' * backward}: kernel "
+              f"{1e3 * t['kernel']:.2f} us, plain torch "
+              f"{1e3 * t['plain']:.2f} us, library {1e3 * t['library']:.2f} "
+              f"us per call; bound {1e3 * bound:.2f} us ({bound_by}, {fma} "
+              f"multiply-adds per batch row; the kernel at "
+              f"{bound / t['kernel']:.2%} of it); library vs kernel max abs "
+              f"diff {lib_err:.3e} {card}", flush=True)
+    means = [statistics.fmean(col) for col in zip(*rows)]
+    return dict(ms=means[0], plain_ms=means[1], library_ms=means[2],
+                bound_ms=means[3], bound_by=bound_by)
 
 
 def device_profile(name, unit, fn, n, card, torch):
@@ -213,6 +468,92 @@ def profile_eval(flow, x, generator, card, torch):
             by_type.items(), key=lambda kv: -kv[1])), flush=True)
 
 
+def plain_chain(fused_chain):
+    """A context in which every solve runs the kernel's plain version."""
+    return mock.patch.object(fused_chain, "chain_phases",
+                             fused_chain.chain_phases_reference)
+
+
+def counted_epoch(exp, first, torch):
+    """``maybe_data_init(first)`` and one ``train_epoch``, with the chain
+    kernel's launch count set to 0 just before and read just after.
+    Returns (losses, mean loss, launches, backward launches, the state
+    after data init)."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    losses, bwd = [], [0]
+    step_fn = exp.train_step
+    solve_bwd = fused_chain.FusedChainSolve.backward
+
+    def recorded_step(xb):
+        losses.append(step_fn(xb))
+        return losses[-1]
+
+    def counted_backward(ctx, gy):
+        before = fused_chain.chain_phases.launches
+        out = solve_bwd(ctx, gy)
+        bwd[0] += fused_chain.chain_phases.launches - before
+        return out
+
+    with mock.patch.object(exp, "train_step", recorded_step), \
+            mock.patch.object(fused_chain.FusedChainSolve, "backward",
+                              staticmethod(counted_backward)):
+        fused_chain.chain_phases.launches = 0
+        exp.maybe_data_init(first)
+        init_state = copy.deepcopy(exp.flow.state_dict())
+        mean_loss = exp.train_epoch(1)
+        torch.cuda.synchronize()
+        launches = fused_chain.chain_phases.launches
+    return [float(v) for v in losses], mean_loss, launches, bwd[0], init_state
+
+
+def check_grads(label, flow, first, gen, dev, torch):
+    """Step-1 gradients of -log p(x) after dequantization, through the
+    kernel against the plain chain, on the same batch and noise."""
+    from inverse_flow_tpu_torch.layers import Flow
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    params = list(body.parameters())
+    x = torch.as_tensor(first, device=dev)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+
+    def grads():
+        return torch.autograd.grad((-body(x + u)[1]).mean(), params)
+
+    g_kernel = grads()
+    with plain_chain(fused_chain):
+        g_plain = grads()
+    rel = max(0.0 if torch.equal(a, b) else
+              ((a - b).norm() / b.norm()).item()
+              for a, b in zip(g_kernel, g_plain))
+    print(f"{label}: step-1 gradients kernel vs plain chain, same batch and "
+          f"noise: max over {len(params)} tensors of |g - g_plain| / "
+          f"|g_plain| {rel:.3e} (tol {GRAD_RTOL:.0e})", flush=True)
+    if not rel <= GRAD_RTOL:
+        fail("gradients through the kernel disagree with the plain chain")
+    return x
+
+
+def time_steps(label, exp, x, reps, rounds, card, torch):
+    """Train ms/step through the kernel and the plain chain, in turns."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    def step():
+        exp.train_step(x)
+
+    def step_plain():
+        with plain_chain(fused_chain):
+            exp.train_step(x)
+
+    t = ab_ms({"kernel": step, "plain": step_plain}, reps=reps,
+              rounds=rounds, torch=torch)
+    print(f"{label}: {t['kernel']:.3f} ms/step of {BATCH} (plain chain "
+          f"{t['plain']:.3f} ms/step), CUDA events, median of {rounds} "
+          f"turns of {reps} steps {card}", flush=True)
+    return step
+
+
 def phase_train(dev, card, torch):
     """Phase 7: the flagship's training path, ``maybe_data_init`` and one
     ``train_epoch`` of 10 steps, with the registry's training config
@@ -224,12 +565,8 @@ def phase_train(dev, card, torch):
     against the plain chain, peak memory, and the device's busy time and
     launches per step. Returns the main path's (forward, backward)
     launches."""
-    import copy
-
     from inverse_flow_tpu_torch.data import ArrayLoader, mnist
-    from inverse_flow_tpu_torch.layers import Flow
     from inverse_flow_tpu_torch.models.glow import build_glow
-    from inverse_flow_tpu_torch.ops import fused_chain
     from inverse_flow_tpu_torch.train.config import ExperimentConfig
     from inverse_flow_tpu_torch.train.experiment import Experiment
 
@@ -255,89 +592,172 @@ def phase_train(dev, card, torch):
     steps = len(train)
     first = train.data[:BATCH]
 
-    # the step's losses, and the launches its backward passes make
-    losses, bwd = [], [0]
-    step_fn = exp.train_step
-    solve_bwd = fused_chain.FusedChainSolve.backward
-
-    def recorded_step(xb):
-        losses.append(step_fn(xb))
-        return losses[-1]
-
-    def counted_backward(ctx, gy):
-        before = fused_chain.chain_phases.launches
-        out = solve_bwd(ctx, gy)
-        bwd[0] += fused_chain.chain_phases.launches - before
-        return out
-
-    with mock.patch.object(exp, "train_step", recorded_step), \
-            mock.patch.object(fused_chain.FusedChainSolve, "backward",
-                              staticmethod(counted_backward)):
-        fused_chain.chain_phases.launches = 0
-        exp.maybe_data_init(first)
-        init_state = copy.deepcopy(flow.state_dict())
-        mean_loss = exp.train_epoch(1)
-        torch.cuda.synchronize()
-        launches = fused_chain.chain_phases.launches
+    values, mean_loss, launches, bwd, init_state = counted_epoch(
+        exp, first, torch)
     peak_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
-    values = [float(v) for v in losses]
     w_max = max(p.detach().abs().max().item() for p in flow.parameters())
     print(f"train: {cfg.name} data init + {len(values)} steps of {BATCH} "
           f"(lr {cfg.lr}, warmup {cfg.warmup_epochs} epoch, "
           f"{cfg.scheduler_name} {cfg.gamma}, clamp {cfg.weight_clamp}): "
           f"losses {', '.join(f'{v:.4f}' for v in values)}; mean "
           f"{mean_loss:.4f}", flush=True)
-    print(f"train: chain kernel launches {launches} ({launches - bwd[0]} "
-          f"forward, {bwd[0]} backward) for data init + {steps} steps "
+    print(f"train: chain kernel launches {launches} ({launches - bwd} "
+          f"forward, {bwd} backward) for data init + {steps} steps "
           f"(32 x 2 + 64 per step); max |weight| {w_max:.6f}; Batch Time "
           f"Mean {exp.batch_time.mean:.3f} ms over the epoch's window; "
           f"peak memory {peak_gb:.3f} GB {card}", flush=True)
     if len(values) != steps or not all(math.isfinite(v) for v in values):
         fail(f"expected {steps} finite training losses, got {values}")
-    if launches != 32 * 2 + 64 * steps or bwd[0] != 32 * steps:
+    if launches != 32 * 2 + 64 * steps or bwd != 32 * steps:
         fail(f"expected {32 * 2 + 64 * steps} chain kernel launches "
-             f"({32 * steps} backward), got {launches} ({bwd[0]})")
+             f"({32 * steps} backward), got {launches} ({bwd})")
     if not w_max <= cfg.weight_clamp * (1 + 1e-6):
         fail(f"a weight exceeds the clamp: {w_max}")
 
-    # step-1 gradients, kernel vs plain chain, same batch and noise
     flow.load_state_dict(init_state)
+    x = check_grads("train", flow, first, gen, dev, torch)
+    step = time_steps("train", exp, x, 2, 6, card, torch)
+    device_profile("train", "step", step, 2, card, torch)
+    return launches - bwd, bwd
+
+
+def phase_imagenet32(dev, gen, card, torch):
+    """Phase 8: ``bench.py``'s ``imagenet32`` config, L=3 x K=48
+    ``InvFlowUnit`` (144 four-order solves per pass), width 128, SLR,
+    batch 100, on synthetic (3, 32, 32) images through
+    ``data/imagenet.py``; random weights from seed 0.
+
+    The four-order kernel at the model's three solve shapes, forward and
+    backward, against its plain version, timed beside it and the library
+    call; data init and one eval batch (144 launches per pass, finite BPD,
+    log p(x) against the plain chain); data init and one epoch of 3 steps
+    with the ``imagenet32`` training config (Adam lr 1e-5, no warmup, no
+    scheduler, no clamp): every loss finite, ``144 x 2 + 288 x steps``
+    launches of which ``144 x steps`` backward, step-1 gradients against
+    the plain chain, train ms/step against the plain chain, peak memory,
+    and one profiled step. Returns the forward and backward kernel rows
+    of the summary line."""
+    from inverse_flow_tpu_torch.data import ArrayLoader, imagenet
+    from inverse_flow_tpu_torch.layers import Flow
+    from inverse_flow_tpu_torch.models.glow import build_glow
+    from inverse_flow_tpu_torch.ops import fused_chain
+    from inverse_flow_tpu_torch.train.config import ExperimentConfig
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    label = "imagenet32"
+    on = dict(gen=gen, dev=dev, torch=torch)
+    cases = [(chw, UNIT) for chw in UNIT_SHAPES]
+    errs = (check_forward(cases, f"{label}: kernel", **on),
+            check_backward(cases, f"{label}: backward", **on))
+    rows = [dict(time_rows(UNIT_SHAPES, UNIT, backward, 5, 4, label,
+                           card=card, **on), max_abs_err=err)
+            for backward, err in ((False, errs[0]), (True, errs[1]))]
+
+    def model():
+        gen = torch.Generator(dev).manual_seed(0)
+        return build_glow((3, 32, 32), step_kind="inv_flow_unit",
+                          num_blocks=3, block_size=48, coupling_width=128,
+                          actnorm=True, split_prior=True, activation="SLR",
+                          generator=gen, device=dev), gen
+
+    cfg = ExperimentConfig(
+        name="imagenet32", lr=1e-5, batch_size=BATCH, warmup_epochs=0,
+        scheduler_name="None", weight_clamp=None, add_recon_grad=False,
+        max_eval_ex=BATCH, metrics_path=os.path.join(
+            HERE, "chiprun_out", "imagenet32_metrics.jsonl"), seed=0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        train, val, test = imagenet.load_data(size=32, batch_size=BATCH,
+                                              seed=cfg.seed)
+    for w in caught:
+        print(f"{label}: data: {w.message}", flush=True)
+    train = ArrayLoader(train.data[:UNIT_TRAIN_EXAMPLES], BATCH,
+                        shuffle=True, seed=cfg.seed)
+    first = train.data[:BATCH]
+
+    # scoring: data init and one eval batch
+    flow, gen = model()
+    exp = Experiment(flow, train, val, test, cfg, device=dev)
+    n_params = sum(p.numel() for p in flow.parameters())
+    fused_chain.chain_phases.launches = 0
+    t0 = time.perf_counter()
+    exp.maybe_data_init(first)
+    logpx = exp.eval_epoch(val)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fused_chain.chain_phases.launches
+    bpd = exp.to_bpd(logpx)
+    print(f"{label}: {n_params} params, data init + eval over 1 batch of "
+          f"{BATCH}: log p(x) {logpx:.4f}, BPD {bpd:.4f}; chain kernel "
+          f"launches {launches} for 3 passes (144 per pass); {host_s:.1f} s",
+          flush=True)
+    if not math.isfinite(bpd):
+        fail("imagenet32 BPD is not finite")
+    if launches != 144 * 3:
+        fail(f"expected {144 * 3} chain kernel launches, got {launches}")
+
     body = Flow(flow.base_distribution, flow.layers[1:])
-    params = list(body.parameters())
     x = torch.as_tensor(first, device=dev)
     u = torch.rand(x.shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        z, lp = body(x + u)
+        with plain_chain(fused_chain):
+            z_ref, lp_ref = body(x + u)
+    rel = ((lp - lp_ref).abs() / lp_ref.abs()).max().item()
+    print(f"{label}: log p(x) kernel vs plain chain on one batch, same "
+          f"noise: max rel err {rel:.3e} (tol {LOGPX_RTOL:.0e}); z "
+          f"{tuple(z.shape)} max abs diff "
+          f"{(z - z_ref).abs().max().item():.3e}", flush=True)
+    if z.shape != (BATCH, 48, 4, 4) or not torch.isfinite(lp).all():
+        fail("imagenet32 output has the wrong shape or is not finite")
+    if not rel <= LOGPX_RTOL:
+        fail("imagenet32 log p(x) through the kernel disagrees with the "
+             "plain chain")
 
-    def grads():
-        return torch.autograd.grad((-body(x + u)[1]).mean(), params)
+    def eval_batch():
+        return flow.cheap_log_prob(x, exp.generator)
 
-    g_kernel = grads()
-    with mock.patch.object(fused_chain, "chain_phases",
-                           fused_chain.chain_phases_reference):
-        g_plain = grads()
-    rel = max(0.0 if torch.equal(a, b) else
-              ((a - b).norm() / b.norm()).item()
-              for a, b in zip(g_kernel, g_plain))
-    print(f"train: step-1 gradients kernel vs plain chain, same batch and "
-          f"noise: max over {len(params)} tensors of |g - g_plain| / "
-          f"|g_plain| {rel:.3e} (tol {GRAD_RTOL:.0e})", flush=True)
-    if not rel <= GRAD_RTOL:
-        fail("gradients through the kernel disagree with the plain chain")
+    def eval_batch_plain():
+        with plain_chain(fused_chain):
+            return flow.cheap_log_prob(x, exp.generator)
 
-    def step():
-        exp.train_step(x)
+    with torch.inference_mode():
+        t = ab_ms({"kernel": eval_batch, "plain": eval_batch_plain},
+                  reps=1, rounds=4, torch=torch)
+    print(f"{label}: eval {t['kernel']:.3f} ms/batch of {BATCH} (plain "
+          f"chain {t['plain']:.3f} ms/batch), median of 4 turns {card}",
+          flush=True)
+    del exp, flow, body, z, z_ref
+    torch.cuda.empty_cache()
 
-    def step_plain():
-        with mock.patch.object(fused_chain, "chain_phases",
-                               fused_chain.chain_phases_reference):
-            exp.train_step(x)
+    # training: data init and one epoch
+    flow, gen = model()
+    exp = Experiment(flow, train, val, test, cfg, device=dev)
+    steps = len(train)
+    values, mean_loss, launches, bwd, init_state = counted_epoch(
+        exp, first, torch)
+    peak_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
+    print(f"{label}: data init + {len(values)} steps of {BATCH} (Adam lr "
+          f"{cfg.lr}, no warmup, no scheduler, no clamp): losses "
+          f"{', '.join(f'{v:.4f}' for v in values)}; mean {mean_loss:.4f}",
+          flush=True)
+    print(f"{label}: chain kernel launches {launches} ({launches - bwd} "
+          f"forward, {bwd} backward) for data init + {steps} steps "
+          f"(144 x 2 + 288 per step); Batch Time Mean "
+          f"{exp.batch_time.mean:.3f} ms over the epoch's window; peak "
+          f"memory {peak_gb:.3f} GB {card}", flush=True)
+    if len(values) != steps or not all(math.isfinite(v) for v in values):
+        fail(f"expected {steps} finite imagenet32 losses, got {values}")
+    if launches != 144 * 2 + 288 * steps or bwd != 144 * steps:
+        fail(f"expected {144 * 2 + 288 * steps} chain kernel launches "
+             f"({144 * steps} backward), got {launches} ({bwd})")
 
-    t = ab_ms({"kernel": step, "plain": step_plain}, reps=2, rounds=6,
-              torch=torch)
-    print(f"train: {t['kernel']:.3f} ms/step of {BATCH} (plain chain "
-          f"{t['plain']:.3f} ms/step), CUDA events, median of 6 turns of 2 "
-          f"steps {card}", flush=True)
-    device_profile("train", "step", step, 2, card, torch)
-    return launches - bwd[0], bwd[0]
+    flow.load_state_dict(init_state)
+    x = check_grads(label, flow, first, gen, dev, torch)
+    step = time_steps(label, exp, x, 1, 4, card, torch)
+    device_profile(label, "step", step, 1, card, torch)
+    return [dict(r, launches=n) for r, n in zip(rows,
+                                                 (launches - bwd, bwd))]
 
 
 def main():
@@ -356,7 +776,6 @@ def main():
     from inverse_flow_tpu_torch.layers import Flow
     from inverse_flow_tpu_torch.models.glow import build_glow
     from inverse_flow_tpu_torch.ops import _build, fused_chain
-    from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
     from inverse_flow_tpu_torch.train.config import ExperimentConfig
     from inverse_flow_tpu_torch.train.experiment import Experiment
 
@@ -381,96 +800,16 @@ def main():
 
     # ---- 3. kernel vs plain --------------------------------------------
     gen = torch.Generator(dev).manual_seed(0)
-
-    def solve_operands(chw, orders):
-        c = chw[0]
-        x = torch.randn((BATCH,) + chw, generator=gen, device=dev)
-        ws = [apply_mask(0.1 * torch.randn(
-            (c, c, 3, 3), generator=gen, device=dev)) for _ in orders]
-        return x, ws
-
-    def operands(chw, orders, transpose=False):
-        x, ws = solve_operands(chw, orders)
-        ws = [w.transpose(0, 1) if transpose else w for w in ws]
-        return fused_chain.chain_inputs(x, ws, orders)
-
-    max_err = 0.0
-    for chw, orders in KERNEL_CASES:
-        args = operands(chw, orders)
-        with torch.inference_mode():
-            y = fused_chain.chain_phases(*args)
-            torch.cuda.synchronize()
-            ref = fused_chain.chain_phases_reference(*args)
-        err = (y - ref).abs().max().item()
-        tol = 1e-5 * max(1.0, ref.abs().max().item())
-        max_err = max(max_err, err)
-        print(f"kernel: ({BATCH},{','.join(map(str, chw))}) "
-              f"{'-'.join(orders)}: max_abs_err {err:.3e} (tol {tol:.3e})",
-              flush=True)
-        if not err <= tol:
-            fail(f"chain kernel disagrees with its plain version at {chw} "
-                 f"{orders}")
-
-    kernel_ms, plain_ms = [], []
-    for chw in FLAGSHIP_SHAPES:
-        args = operands(chw, ("TL",))
-        with torch.inference_mode():
-            t = ab_ms({"kernel": lambda: fused_chain.chain_phases(*args),
-                       "plain": lambda: fused_chain.chain_phases_reference(
-                           *args)}, reps=200, rounds=6, torch=torch)
-        kernel_ms.append(t["kernel"])
-        plain_ms.append(t["plain"])
-        print(f"kernel: ({BATCH},{','.join(map(str, chw))}) TL: kernel "
-              f"{1e3 * t['kernel']:.2f} us, plain torch "
-              f"{1e3 * t['plain']:.2f} us per call {card}", flush=True)
+    on = dict(gen=gen, dev=dev, torch=torch)
+    max_err = check_forward(KERNEL_CASES, "kernel", **on)
+    fwd_times = time_rows(FLAGSHIP_SHAPES, ("TL",), False, 200, 6, "kernel",
+                          card=card, **on)
 
     # ---- 4. backward vs plain ------------------------------------------
-    def vjp(x, ws, orders, gy):
-        x = x.detach().requires_grad_()
-        ws = [w.detach().requires_grad_() for w in ws]
-        y = fused_chain.fused_chain_solve(x, ws, orders)
-        return torch.autograd.grad(y, [x, *ws], gy)
-
-    bwd_err = 0.0
-    for chw, orders in KERNEL_CASES:
-        x, ws = solve_operands(chw, orders)
-        gy = torch.randn(x.shape, generator=gen, device=dev)
-        before = fused_chain.chain_phases.launches
-        dx, *dws = vjp(x, ws, orders, gy)
-        torch.cuda.synchronize()
-        launched = fused_chain.chain_phases.launches - before
-        with mock.patch.object(fused_chain, "chain_phases",
-                               fused_chain.chain_phases_reference):
-            ref_dx, *ref_dws = vjp(x, ws, orders, gy)
-        err = (dx - ref_dx).abs().max().item()
-        tol = 1e-5 * max(1.0, ref_dx.abs().max().item())
-        dw_rel = max(((d - r).abs().max() / r.abs().max()).item()
-                     for d, r in zip(dws, ref_dws))
-        bwd_err = max(bwd_err, err)
-        print(f"backward: ({BATCH},{','.join(map(str, chw))}) "
-              f"{'-'.join(orders)}: dx max_abs_err {err:.3e} (tol "
-              f"{tol:.3e}), dW max err / max|dW| {dw_rel:.3e} (tol 1e-4); "
-              f"{launched} kernel launches", flush=True)
-        if launched != 2:
-            fail(f"expected 2 chain kernel launches (forward and backward) "
-                 f"at {chw} {orders}, got {launched}")
-        if not (err <= tol and dw_rel <= 1e-4):
-            fail(f"the backward through the kernel disagrees with the plain "
-                 f"chain at {chw} {orders}")
-
-    bwd_ms, bwd_plain_ms = [], []
-    for chw in FLAGSHIP_SHAPES:
-        args = operands(chw, ("BR",), transpose=True)
-        with torch.inference_mode():
-            t = ab_ms({"kernel": lambda: fused_chain.chain_phases(*args),
-                       "plain": lambda: fused_chain.chain_phases_reference(
-                           *args)}, reps=200, rounds=6, torch=torch)
-        bwd_ms.append(t["kernel"])
-        bwd_plain_ms.append(t["plain"])
-        print(f"backward: ({BATCH},{','.join(map(str, chw))}) BR, transposed "
-              f"kernel (the backward's launch): kernel "
-              f"{1e3 * t['kernel']:.2f} us, plain torch "
-              f"{1e3 * t['plain']:.2f} us per call {card}", flush=True)
+    bwd_err = check_backward(KERNEL_CASES, "backward", **on)
+    # the backward's launch of a TL solve: BR, transposed kernel
+    bwd_times = time_rows(FLAGSHIP_SHAPES, ("TL",), True, 200, 6,
+                          "backward", card=card, **on)
 
     # ---- 5. the slice ---------------------------------------------------
     flow = build_glow((1, 28, 28), step_kind="inv_conv_no_pad", num_blocks=2,
@@ -519,8 +858,7 @@ def main():
     u = torch.rand(x.shape, generator=gen, device=dev)
     with torch.inference_mode():
         z, lp = body(x + u)
-        with mock.patch.object(fused_chain, "chain_phases",
-                               fused_chain.chain_phases_reference):
+        with plain_chain(fused_chain):
             z_ref, lp_ref = body(x + u)
     rel = ((lp - lp_ref).abs() / lp_ref.abs()).max().item()
     print(f"slice: log p(x) kernel vs plain chain on one batch, same noise: "
@@ -535,8 +873,7 @@ def main():
         return flow.cheap_log_prob(x, exp.generator)
 
     def eval_batch_plain():
-        with mock.patch.object(fused_chain, "chain_phases",
-                               fused_chain.chain_phases_reference):
+        with plain_chain(fused_chain):
             return flow.cheap_log_prob(x, exp.generator)
 
     with torch.inference_mode():
@@ -551,19 +888,23 @@ def main():
     # ---- 7. train -------------------------------------------------------
     fwd_launches, bwd_launches = phase_train(dev, card, torch)
 
+    # ---- 8. imagenet32 --------------------------------------------------
+    unit_rows = phase_imagenet32(dev, gen, card, torch)
+
     kernel = {"route": "cuda",
               "source": "inverse_flow_tpu_torch/csrc/chain_solve.cu",
               "replaces": "inverse_flow_tpu/ops/fused_chain.py:209"}
-    # times: means over the two flagship shapes, which the path launches
-    # equally often; launches: the train path's run (phase 7)
+    # times and bounds: means over each path's solve shapes, which it
+    # launches equally often; launches: each path's train run (phases 7
+    # and 8, the counts set to 0 just before)
     print(json.dumps({"kernels": [
         dict(name="chain_phases", **kernel, launches=fwd_launches,
-             max_abs_err=max_err, ms=statistics.fmean(kernel_ms),
-             plain_ms=statistics.fmean(plain_ms)),
+             max_abs_err=max_err, **fwd_times),
         dict(name="chain_phases:backward", **kernel,
-             launches=bwd_launches, max_abs_err=bwd_err,
-             ms=statistics.fmean(bwd_ms),
-             plain_ms=statistics.fmean(bwd_plain_ms))]}), flush=True)
+             launches=bwd_launches, max_abs_err=bwd_err, **bwd_times),
+        dict(name="chain_phases:unit", **kernel, **unit_rows[0]),
+        dict(name="chain_phases:unit_backward", **kernel,
+             **unit_rows[1])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,9 @@ params are a list with one pytree per layer, and the port's parameter
 ``layers[i].steps.1.w`` is ``params[i]["steps"][1]["w"]`` there. So the
 bridge flattens each layer's pytree into dotted names and copies leaf by
 leaf (:func:`params_from_jax`), and rebuilds the pytree from the dotted
-names, an integer key making a list (:func:`params_to_jax`).
+names, an integer key making a list (:func:`params_to_jax`). Nested
+names such as an ``InvFlowUnit`` step's ``steps.1.convs.0.w`` cross the
+same way.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ def _unflatten(named):
             return node
         node = {k: listify(v) for k, v in node.items()}
         if node and all(k.isdigit() for k in node):
-            return [node[str(i)] for i in range(len(node))]
+            # a list entry without parameters (an SLR step) is {}
+            return [node.get(str(i), {})
+                    for i in range(max(map(int, node)) + 1)]
         return node
     return listify(tree)
 

@@ -1,6 +1,6 @@
-"""Datasets of the scoring path, held as numpy arrays in host memory."""
+"""Datasets of the ported paths, held as numpy arrays in host memory."""
 
-from . import mnist, synthetic
+from . import imagenet, mnist, synthetic
 from .loader import ArrayLoader
 
-__all__ = ["ArrayLoader", "mnist", "synthetic"]
+__all__ = ["ArrayLoader", "imagenet", "mnist", "synthetic"]

@@ -5,13 +5,14 @@ from .actnorm import ActNorm
 from .squeeze import Squeeze
 from .coupling import Coupling
 from .splitprior import SplitPrior
-from .activations import SplineActivation
-from .inv_flow import InvFlow, InvFlowNoPad
+from .activations import SmoothLeakyRelu, SplineActivation
+from .inv_flow import InvFlow, InvFlowNoPad, InvFlowUnit
 from .repeated import RepeatedBlock
 
 __all__ = [
     "FlowLayer", "Flow", "sum_except_batch", "zeros_ldj",
     "Dequantization", "Normalization", "LogitTransform", "ActNorm",
-    "Squeeze", "Coupling", "SplitPrior", "SplineActivation", "InvFlow",
-    "InvFlowNoPad", "RepeatedBlock",
+    "Squeeze", "Coupling", "SplitPrior", "SmoothLeakyRelu",
+    "SplineActivation", "InvFlow", "InvFlowNoPad", "InvFlowUnit",
+    "RepeatedBlock",
 ]

@@ -1,8 +1,9 @@
-"""Elementwise RQ-spline activation.
+"""Elementwise activations: the RQ spline and the smooth leaky ReLU.
 
-Port of ``inverse_flow_tpu/layers/activations.py:SplineActivation`` with
-``individual_weights=True``, the flagship's setting: one knot set per
-tensor position, shared over the batch.
+Port of ``inverse_flow_tpu/layers/activations.py``: ``SplineActivation``
+with ``individual_weights=True``, the flagship's setting (one knot set per
+tensor position, shared over the batch), and ``SmoothLeakyRelu``, forward
+direction.
 """
 
 from __future__ import annotations
@@ -38,3 +39,18 @@ class SplineActivation(FlowLayer):
             x, p["widths"], p["heights"], p["derivs"],
             tail_bound=self.tail_bound)
         return out, sum_except_batch(ld)
+
+
+class SmoothLeakyRelu(FlowLayer):
+    """``alpha*x + (1-alpha)*softplus(x)``; ldj ``sum log(alpha +
+    (1-alpha)*sigmoid(x))``. softplus is ``logaddexp(x, 0)``, the JAX
+    formula, with no threshold (``F.softplus`` returns x above 20)."""
+
+    def __init__(self, alpha: float = 0.3):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward_with(self, p, x, generator=None):
+        a = self.alpha
+        y = a * x + (1 - a) * torch.logaddexp(x, torch.zeros_like(x))
+        return y, sum_except_batch(torch.log(a + (1 - a) * torch.sigmoid(x)))

@@ -7,8 +7,9 @@ whose parameters carry the names of the JAX params pytree:
     is always a ``(B,)`` float32 tensor. ``generator`` is the
     ``torch.Generator`` a stochastic layer draws from.
   * ``forward_with(p, x, generator=None)``: the same with the parameters
-    given as a dict of tensors. ``RepeatedBlock`` keeps its K steps'
-    parameters stacked and runs step k on the k-th slices.
+    given as a dict of tensors under their dotted names (a child module's
+    as ``convs.0.w``). ``RepeatedBlock`` keeps its K steps' parameters
+    stacked and runs step k on the k-th slices.
   * ``data_init_with(p, x)``: data-dependent initialisation, written in
     place into ``p`` (ActNorm); a no-op by default.
 """
@@ -39,7 +40,9 @@ class FlowLayer(nn.Module):
     has_recon_loss: bool = False
 
     def own_params(self):
-        return dict(self.named_parameters(recurse=False))
+        """The layer's parameters, its child modules' included, by dotted
+        name: the dict ``forward_with`` reads."""
+        return dict(self.named_parameters())
 
     def forward(self, x, generator=None):
         return self.forward_with(self.own_params(), x, generator)

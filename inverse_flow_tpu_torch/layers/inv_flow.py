@@ -1,10 +1,11 @@
-"""Inverse-Flow convolution layer: the inverse of a masked convolution.
+"""Inverse-Flow convolution layers: the inverse of a masked convolution.
 
-Port of ``inverse_flow_tpu/layers/inv_flow.py:InvFlow``/``InvFlowNoPad``,
-training direction, exact solver. The solve runs through
-:func:`~inverse_flow_tpu_torch.ops.fused_chain.fused_chain_solve` with one
-order: the chain kernel on a CUDA tensor, its plain version on a CPU
-tensor, in the forward and again (BR, transposed kernel) in the backward;
+Port of ``inverse_flow_tpu/layers/inv_flow.py:InvFlow``/``InvFlowNoPad``
+and ``InvFlowUnit``, training direction, exact solver. The solve runs
+through :func:`~inverse_flow_tpu_torch.ops.fused_chain.fused_chain_solve`
+with one order (four for the unit): the chain kernel on a CUDA tensor,
+its plain version on a CPU tensor, in the forward and again
+(complementary orders, transposed kernels) in the backward;
 autograd carries the weight gradient back through ``apply_mask``. ldj is
 exactly 0 (the masked conv is unit lower triangular in raster order). The
 weights are stored in canonical TL orientation; the order's flips are
@@ -21,6 +22,9 @@ from torch import nn
 from ..ops.fused_chain import ORDER_FLAGS, fused_chain_solve
 from ..ops.inv_conv import apply_mask
 from .base import FlowLayer, zeros_ldj
+
+# the orders of an InvFlowUnit, in the order they are solved
+ORDERS = ("TL", "TR", "BL", "BR")
 
 
 def _xavier_noise(shape, generator, device, gain=0.01):
@@ -55,3 +59,29 @@ class InvFlow(FlowLayer):
 class InvFlowNoPad(InvFlow):
     """The reference's no-pad variant: the TL layer, with InvFlow's
     arguments and defaults, as in the JAX package."""
+
+
+class InvFlowUnit(FlowLayer):
+    """Four chained InvFlow solves, TL -> TR -> BL -> BR, in one
+    ``fused_chain_solve``: one chain kernel launch forward and one in the
+    backward. ``'auto'``, ``'exact'`` and ``'fused'`` are the same
+    function here (the JAX package's fused path and its batched exact
+    chain); ``'jacobi'`` is not ported. The parameters are ``convs.i.w``,
+    as the JAX pytree ``{"convs": [{"w": ...} x 4]}``."""
+
+    def __init__(self, channels: int, kernel_size: Tuple[int, int] = (3, 3),
+                 solver: str = "auto", generator=None, device=None):
+        super().__init__()
+        if solver == "jacobi":
+            raise NotImplementedError("InvFlowUnit: the Jacobi solver is "
+                                      "not ported")
+        if solver not in ("auto", "exact", "fused"):
+            raise ValueError(f"unknown solver: {solver}")
+        self.convs = nn.ModuleList(
+            InvFlow(channels, kernel_size, order=o, generator=generator,
+                    device=device) for o in ORDERS)
+
+    def forward_with(self, p, x, generator=None):
+        w_effs = tuple(apply_mask(p[f"convs.{i}.w"])
+                       for i in range(len(ORDERS)))
+        return fused_chain_solve(x, w_effs, ORDERS), zeros_ldj(x)

@@ -23,7 +23,9 @@ from .base import FlowLayer, zeros_ldj
 class RepeatedBlock(FlowLayer):
     """``make_step()`` returns one step's layers (shape preserving, no
     randomness); it is called ``n_repeats`` times so that every step gets
-    its own initial parameters, which are then stacked."""
+    its own initial parameters, which are then stacked, a step layer's
+    child modules' (``InvFlowUnit``'s ``convs.i.w``) included: the JAX
+    names ``steps.j.convs.i.w`` with shape (K, ...)."""
 
     def __init__(self, make_step: Callable[[], Sequence[FlowLayer]],
                  n_repeats: int, remat: bool = False):
@@ -35,8 +37,10 @@ class RepeatedBlock(FlowLayer):
         for j, layer in enumerate(self.steps):
             for name in list(layer.own_params()):
                 stacked = torch.stack(
-                    [getattr(step[j], name).detach() for step in steps])
-                setattr(layer, name, nn.Parameter(stacked))
+                    [step[j].get_parameter(name).detach() for step in steps])
+                owner, _, leaf = name.rpartition(".")
+                setattr(layer.get_submodule(owner), leaf,
+                        nn.Parameter(stacked))
 
     def _step_params(self, k):
         return [{n: t[k] for n, t in layer.own_params().items()}

@@ -13,7 +13,7 @@ unflipped data:
 :func:`chain_phases` runs it: the CUDA kernel ``csrc/chain_solve.cu`` on a
 CUDA tensor, and :func:`chain_phases_reference`, the same function in plain
 torch, on a CPU tensor. The operator build (:func:`_phase_matrices`) is
-plain torch on either device.
+plain torch on either device, one batched pass over the N orders' kernels.
 
 The backward (:class:`FusedChainSolve`) is again a chain: the cotangent
 walks the orders in reverse, each with its complementary orientation
@@ -91,18 +91,23 @@ def _rows_perm(rows, width, c, fh, fw, device):
     return rn * cw + _cw_perm(width, c, fw, device)[ii]
 
 
-def _phase_matrices(w_eff, order, width, r):
-    """(T_eff, G_eff) for one order: the blocked solve matrices conjugated
-    by the order's flip permutations, so the kernel runs on unflipped
-    data."""
-    c, kh = w_eff.shape[0], w_eff.shape[2]
-    fh, fw = ORDER_FLAGS[order]
-    mats = _row_matrices(w_eff, width)
+def _phase_matrices(w_effs, orders, width, r, kcw):
+    """(T_eff (N, RCW, RCW), G_eff (N, RCW, KCW)) for N orders: the
+    blocked solve matrices of all N kernels from one batched build, each
+    conjugated by its order's flip permutations, so the kernel runs on
+    unflipped data."""
+    c, kh = w_effs[0].shape[0], w_effs[0].shape[2]
+    mats = _row_matrices(torch.stack(w_effs), width)
     t_inv = _block_toeplitz_inverse(mats, r)
     g = t_inv @ _prev_block(mats, r)
-    q = _rows_perm(r, width, c, fh, fw, w_eff.device)
-    s = _rows_perm(kh - 1, width, c, fh, fw, w_eff.device)
-    return t_inv[q][:, q], g[q][:, s]
+    dev = t_inv.device
+    q = torch.stack([_rows_perm(r, width, c, *ORDER_FLAGS[o], dev)
+                     for o in orders])
+    s = torch.stack([_rows_perm(kh - 1, width, c, *ORDER_FLAGS[o], dev)
+                     for o in orders])[:, :kcw]
+    n = torch.arange(len(orders), device=dev)[:, None, None]
+    return (t_inv[n, q[:, :, None], q[:, None, :]],
+            g[n, q[:, :, None], s[:, None, :]])
 
 
 # ---------------------------------------------------------------------------
@@ -214,20 +219,30 @@ chain_phases.launches = 0
 
 def chain_inputs(x, w_effs, orders):
     """The arguments of :func:`chain_phases` for solving ``x`` (B, C, H, W)
-    through the chain: ``(xb, t_all, g_all, dirs, kcw, pad_cw)``. Row
+    through the chain: ``(xb, t_all, g_all, dirs, kcw, pad_cw)``; the N
+    orders' operators come from one batched build. Row
     blocks cover the zero-padded height ceil(H/R)*R. A height with no
     split into two blocks of at least KH-1 rows runs as one block of H
     rows: no carry is read, so its width is capped at the block's."""
     b, c, h, width = x.shape
     kh = w_effs[0].shape[2]
     r, pad = choose_block_rows_fused(h, c * width, kh) or (h, 0)
-    phases = [_phase_matrices(w, o, width, r) for w, o in zip(w_effs, orders)]
     kcw = min((kh - 1) * c * width, r * c * width)
-    t_all = torch.stack([p[0] for p in phases]).contiguous()
-    g_all = torch.stack([p[1][:, :kcw] for p in phases]).contiguous()
+    t_all, g_all = _phase_matrices(tuple(w_effs), orders, width, r, kcw)
     dirs = tuple(ORDER_FLAGS[o][0] for o in orders)
     xb = _to_blocks(F.pad(x.float(), (0, 0, 0, pad)), r)
     return xb, t_all, g_all, dirs, kcw, pad * c * width
+
+
+def backward_inputs(gy, w_effs, orders):
+    """The arguments of the backward's :func:`chain_phases` launch: the
+    cotangent ``gy`` through the orders in reverse, each with its
+    complementary orientation and its channel-transposed kernel. Phase
+    ``n-1-l`` of that launch is the cotangent on the input of order
+    ``l``."""
+    return chain_inputs(gy, tuple(_transpose_kernel(w)
+                                  for w in reversed(w_effs)),
+                        tuple(_COMPLEMENT[o] for o in reversed(orders)))
 
 
 class FusedChainSolve(torch.autograd.Function):
@@ -235,10 +250,8 @@ class FusedChainSolve(torch.autograd.Function):
 
     Port of ``_fused_fwd``/``_fused_bwd``. forward: one
     :func:`chain_phases` launch; every phase output is kept. backward: a
-    second launch on ``(gy, transposed kernels in reverse, complementary
-    orders)``, whose phase ``n-1-l`` is the cotangent on the input of
-    order ``l``; then ``dW_l = -wgrad(y_l, dx_l)`` in order ``l``'s
-    canonical (TL) frame."""
+    second launch on :func:`backward_inputs`; then ``dW_l = -wgrad(y_l,
+    dx_l)`` in order ``l``'s canonical (TL) frame."""
 
     @staticmethod
     def forward(ctx, orders, x, *w_effs):
@@ -256,9 +269,7 @@ class FusedChainSolve(torch.autograd.Function):
         _, c, h, width = ctx.x_shape
         n = len(orders)
         kh, kw = w_effs[0].shape[2], w_effs[0].shape[3]
-        back_orders = tuple(_COMPLEMENT[o] for o in reversed(orders))
-        back_weffs = tuple(_transpose_kernel(w) for w in reversed(w_effs))
-        gphases = chain_phases(*chain_inputs(gy, back_weffs, back_orders))
+        gphases = chain_phases(*backward_inputs(gy, w_effs, orders))
         dws = []
         for l, order in enumerate(orders):
             ax = _flip_axes(order)

@@ -11,9 +11,12 @@ lower triangular, so ``y = T^{-1} x`` is solved row-blocked:
      to the previous block's last KH-1 rows;
   3. ``y_b = x_b @ T_blk^{-T} - tail_{b-1} @ G^T`` over the row blocks.
 
-Step 3 runs in the chain kernel (``ops/fused_chain.py``);
-:func:`solve_ungrouped` here is the plain composition, kept as a second
-reference beside :func:`masked_conv_apply`.
+Steps 1-2 take a leading order axis: the N kernels of a chain (the four of
+an ``InvFlowUnit``) are built in one batched pass, as the JAX
+``_chain_build`` vmaps them. Step 3 runs in the chain kernel
+(``ops/fused_chain.py``); :func:`solve_ungrouped` here is the plain
+composition, kept as a second reference beside :func:`masked_conv_apply`
+and :func:`dense_operator`.
 
 Rows are flattened as (w, c) -> w*C + c, so ``M0`` is block-lower over
 pixels with a unit diagonal. Its diagonal (C, C) blocks are lower
@@ -72,26 +75,38 @@ def masked_conv_apply(y, w_eff):
     return F.conv2d(F.pad(y, (kw - 1, 0, kh - 1, 0)), w_eff)
 
 
+def dense_operator(w_eff, c: int, h: int, width: int):
+    """``T`` as a dense (CHW, CHW) matrix in flattened NCHW order, so that
+    ``T @ y.reshape(-1)`` is ``masked_conv_apply(y, w_eff)`` for one
+    image (the JAX ``dense_operator``, groups=1). A test oracle and the
+    library call's operand; never on the training path."""
+    n = c * h * width
+    eye = torch.eye(n, dtype=w_eff.dtype, device=w_eff.device)
+    cols = masked_conv_apply(eye.reshape(n, c, h, width), w_eff)
+    return cols.reshape(n, n).T
+
+
 # ---------------------------------------------------------------------------
 # Operator build
 # ---------------------------------------------------------------------------
 
 def _row_matrices(w_eff, width: int):
-    """(KH, CW, CW) stack of per-row dependence matrices. Index r=0 is the
-    within-row matrix M0; r>=1 maps row h-r into row h:
+    """(N, KH, CW, CW) stacks of per-row dependence matrices of N kernels
+    ``w_eff`` (N, C, C', KH, KW). Index r=0 is the within-row matrix M0;
+    r>=1 maps row h-r into row h:
 
-      entry[r, (wi, c), (wj, c')] = w_eff[c, c', KH-1-r, KW-1-(wi-wj)]
-                                    for 0 <= wi-wj <= KW-1, else 0.
+      entry[n, r, (wi, c), (wj, c')] = w_eff[n, c, c', KH-1-r, KW-1-(wi-wj)]
+                                       for 0 <= wi-wj <= KW-1, else 0.
     """
-    c_out, c_in, kh, kw = w_eff.shape
+    n, c_out, c_in, kh, kw = w_eff.shape
     idx = torch.arange(width, device=w_eff.device)
     diff = idx[:, None] - idx[None, :]                          # (W, W)
     valid = (diff >= 0) & (diff <= kw - 1)
     tap = kw - 1 - diff.clamp(0, kw - 1)
-    gathered = w_eff.flip(2)[:, :, :, tap]             # (C, C', KH, W, W)
+    gathered = w_eff.flip(3)[..., tap]              # (N, C, C', KH, W, W)
     gathered = gathered * valid.to(w_eff.dtype)
-    mats = gathered.permute(2, 3, 0, 4, 1)             # (KH, W, C, W, C')
-    return mats.reshape(kh, width * c_out, width * c_in)
+    mats = gathered.permute(0, 3, 4, 1, 5, 2)       # (N, KH, W, C, W, C')
+    return mats.reshape(n, kh, width * c_out, width * c_in)
 
 
 def _choose_block_rows(h: int, cw: int, kh: int) -> int:
@@ -105,10 +120,10 @@ def _choose_block_rows(h: int, cw: int, kh: int) -> int:
 
 
 def _tri_inverse(m0):
-    """Exact ``M0^{-1}`` for ``M0 = I + N`` with ``N`` nilpotent: the
-    within-row matrix of a masked kernel (N strictly lower) and of its
-    channel transpose (N block-lower over pixels, strictly upper within
-    the diagonal blocks) alike.
+    """Exact ``M0^{-1}`` for each ``M0 = I + N`` of a stack (..., CW, CW),
+    ``N`` nilpotent: the within-row matrix of a masked kernel (N strictly
+    lower) and of its channel transpose (N block-lower over pixels,
+    strictly upper within the diagonal blocks) alike.
 
     Newton-Schulz ``X <- X (2I - M0 X)`` from ``X = 2I - M0``: after k
     steps X is ``sum_{j < 2^(k+1)} (-N)^j``, which is exact once
@@ -124,42 +139,45 @@ def _tri_inverse(m0):
 
 
 def _toeplitz_d_blocks(mats, r_rows: int):
-    """(R, CW, CW) blocks of ``T_blk^{-1}`` (KH >= 2): block (i, j) is
-    ``D[i-j]`` (zero above the diagonal), with ``D[0] = M0^{-1}`` and
-    ``D[d] = -M0^{-1} sum_{r=1..min(KH-1,d)} mats[r] D[d-r]``."""
-    kh = mats.shape[0]
-    m0_inv = _tri_inverse(mats[0])
+    """(N, R, CW, CW) blocks of each ``T_blk^{-1}`` (KH >= 2): block
+    (i, j) is ``D[i-j]`` (zero above the diagonal), with
+    ``D[0] = M0^{-1}`` and ``D[d] = -M0^{-1} sum_{r=1..min(KH-1,d)}
+    mats[r] D[d-r]``."""
+    kh = mats.shape[1]
+    m0_inv = _tri_inverse(mats[:, 0])
     d_blocks = [m0_inv]
     for d in range(1, r_rows):
-        acc = sum(mats[r] @ d_blocks[d - r]
+        acc = sum(mats[:, r] @ d_blocks[d - r]
                   for r in range(1, min(kh - 1, d) + 1))
         d_blocks.append(-(m0_inv @ acc))
-    return torch.stack(d_blocks)
+    return torch.stack(d_blocks, dim=1)
 
 
 def _block_toeplitz_inverse(mats, r_rows: int):
-    """Dense (R*CW, R*CW) ``T_blk^{-1}`` assembled from the D blocks."""
-    cw = mats.shape[1]
+    """Dense (N, R*CW, R*CW) ``T_blk^{-1}`` assembled from the D blocks."""
+    n, cw = mats.shape[0], mats.shape[2]
     stack = _toeplitz_d_blocks(mats, r_rows)
     i = torch.arange(r_rows, device=mats.device)
     q = i[:, None] - i[None, :]
-    gathered = stack[q.clamp(0, r_rows - 1)]               # (R, R, CW, CW)
+    gathered = stack[:, q.clamp(0, r_rows - 1)]         # (N, R, R, CW, CW)
     gathered = gathered * (q >= 0).to(mats.dtype)[:, :, None, None]
-    return gathered.permute(0, 2, 1, 3).reshape(r_rows * cw, r_rows * cw)
+    return gathered.permute(0, 1, 3, 2, 4).reshape(n, r_rows * cw,
+                                                   r_rows * cw)
 
 
 def _prev_block(mats, r_rows: int):
-    """(R*CW, (KH-1)*CW) map from the previous block's last KH-1 rows
+    """(N, R*CW, (KH-1)*CW) maps from the previous block's last KH-1 rows
     (tail[t] = y at block row R-(KH-1)+t) into this block's rows:
     block (i, t) = mats[i + KH-1 - t] when 1 <= i+KH-1-t <= KH-1."""
-    kh, cw = mats.shape[0], mats.shape[1]
+    n, kh, cw = mats.shape[0], mats.shape[1], mats.shape[2]
     i = torch.arange(r_rows, device=mats.device)
     t = torch.arange(kh - 1, device=mats.device)
     q = i[:, None] + (kh - 1) - t[None, :]
     valid = (q >= 1) & (q <= kh - 1)
-    gathered = mats[q.clamp(0, kh - 1)]                 # (R, KH-1, CW, CW)
+    gathered = mats[:, q.clamp(0, kh - 1)]          # (N, R, KH-1, CW, CW)
     gathered = gathered * valid.to(mats.dtype)[:, :, None, None]
-    return gathered.permute(0, 2, 1, 3).reshape(r_rows * cw, (kh - 1) * cw)
+    return gathered.permute(0, 1, 3, 2, 4).reshape(n, r_rows * cw,
+                                                   (kh - 1) * cw)
 
 
 # ---------------------------------------------------------------------------
@@ -185,16 +203,16 @@ def solve_ungrouped(x, w_eff):
     b, c, h, width = x.shape
     kh = w_eff.shape[2]
     cw = c * width
-    mats = _row_matrices(w_eff, width)
+    mats = _row_matrices(w_eff[None], width)
     r = _choose_block_rows(h, cw, kh)
     nb = -(-h // r)
     rcw, kcw = r * cw, (kh - 1) * cw
-    t_inv = _block_toeplitz_inverse(mats, r)
+    t_inv = _block_toeplitz_inverse(mats, r)[0]
     x_rows = x.permute(0, 2, 3, 1).reshape(b, h, cw)
     xb = F.pad(x_rows, (0, 0, 0, nb * r - h)).reshape(b, nb, rcw)
     c_all = xb @ t_inv.T
     if nb > 1:
-        c_all = _scan_blocks(c_all, t_inv @ _prev_block(mats, r), kcw)
+        c_all = _scan_blocks(c_all, t_inv @ _prev_block(mats, r)[0], kcw)
     y_rows = c_all.reshape(b, nb * r, cw)[:, :h]
     return y_rows.reshape(b, h, width, c).permute(0, 3, 1, 2)
 

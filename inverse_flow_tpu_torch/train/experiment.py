@@ -26,12 +26,13 @@ from .stats import StatsRecorder
 
 
 class Experiment:
-    """Trains and scores ``flow`` on ``device``. Dequantization noise comes
-    from a ``torch.Generator`` seeded with ``config.seed``, one draw per
-    example (the JAX default ``eval_mc_samples=1``)."""
+    """Trains and scores ``flow`` on ``device``, the CUDA card unless the
+    caller names another (without a card the default raises). Dequantization
+    noise comes from a ``torch.Generator`` seeded with ``config.seed``, one
+    draw per example (the JAX default ``eval_mc_samples=1``)."""
 
     def __init__(self, flow: Flow, train_loader, val_loader, test_loader,
-                 config: ExperimentConfig, device="cpu"):
+                 config: ExperimentConfig, device="cuda"):
         self.device = torch.device(device)
         self.flow = flow.to(self.device)
         self.train_loader = train_loader

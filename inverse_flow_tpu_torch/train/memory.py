@@ -4,7 +4,8 @@ Port of ``inverse_flow_tpu/train/memory.py:MemoryTracker`` on the CUDA
 caching allocator's counters: allocated bytes, and the peak since the
 previous snapshot (``torch.cuda.max_memory_allocated``, reset by
 ``reset_peak_memory_stats`` after each read, so each epoch reports its own
-peak). On a CPU device there is nothing to read, and a snapshot raises.
+peak). The device is the CUDA card unless the caller names another; on a
+CPU device there is nothing to read, and a snapshot raises.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import torch
 class MemoryTracker:
     """Allocated / peak device memory across epochs, in MB."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.available = self.device.type == "cuda"
         self._base = 0
+        if self.available and not torch.cuda.is_available():
+            raise RuntimeError(f"MemoryTracker: no CUDA card for {device}")
         if self.available:
             self._base = torch.cuda.memory_allocated(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)

@@ -7,19 +7,27 @@ same arrays and the same batches, exactly.
 
 import dataclasses
 import gzip
+import inspect
 import os
 
 import numpy as np
 import pytest
+import torch
 
+from inverse_flow_tpu.data import imagenet as jimagenet
 from inverse_flow_tpu.data import loader as jloader
 from inverse_flow_tpu.data import mnist as jmnist
 from inverse_flow_tpu.data import synthetic as jsynthetic
 from inverse_flow_tpu.train.config import ExperimentConfig as JaxConfig
+from inverse_flow_tpu_torch.data import imagenet as timagenet
 from inverse_flow_tpu_torch.data import loader as tloader
 from inverse_flow_tpu_torch.data import mnist as tmnist
 from inverse_flow_tpu_torch.data import synthetic as tsynthetic
+from inverse_flow_tpu_torch.layers import Flow
+from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.train.config import ExperimentConfig
+from inverse_flow_tpu_torch.train.experiment import Experiment
+from inverse_flow_tpu_torch.train.memory import MemoryTracker
 
 
 def _batches(loader):
@@ -93,3 +101,51 @@ def test_experiment_config_defaults_match_jax():
     ref = JaxConfig()
     for f in dataclasses.fields(ExperimentConfig):
         assert getattr(ExperimentConfig(), f.name) == getattr(ref, f.name)
+
+
+@pytest.mark.parametrize("files", [False, True])
+def test_imagenet_load_data_matches_jax(files, tmp_path, monkeypatch):
+    """Without the shards both fall back to the same synthetic (3, 32, 32)
+    split; with npz and npy shards both read the same images (kept
+    uint8) and split off the same validation set."""
+    monkeypatch.setenv("IFT_DATA_DIR", str(tmp_path))
+    if files:
+        base = tmp_path / "imagenet32"
+        os.makedirs(base)
+        rs = np.random.RandomState(1)
+        for i in (1, 2):
+            np.savez(base / f"train_data_batch_{i}.npz",
+                     data=rs.randint(0, 256, (9, 3072)).astype(np.uint8))
+        np.save(base / "val_data.npy",
+                rs.randint(0, 256, (7, 3072)).astype(np.uint8))
+        kw = dict(batch_size=4, seed=3, val_split=5)
+        ours, ref = timagenet.load_data(**kw), jimagenet.load_data(**kw)
+        assert ours[0].data.dtype == np.uint8
+    else:
+        with pytest.warns(UserWarning, match="synthetic"):
+            ours = timagenet.load_data(batch_size=100)
+        with pytest.warns(UserWarning, match="synthetic"):
+            ref = jimagenet.load_data(batch_size=100)
+        assert ours[0].data.shape == (2000, 3, 32, 32)
+    np.testing.assert_array_equal(ours[0].data, ref[0].data)
+    assert ours[0].shuffle and ours[0].drop_last
+    for a, b in zip(ours[1:], ref[1:]):
+        _assert_same_batches(a, b)
+
+
+def test_entry_points_default_to_the_card():
+    """build_glow, Experiment and MemoryTracker put their work on "cuda"
+    unless the caller names another device; without a card the default
+    raises and nothing moves to the CPU."""
+    for fn in (build_glow, Experiment, MemoryTracker):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        build_glow((1, 8, 8), num_blocks=1, block_size=1, coupling_width=4)
+    flow = Flow(None, [])
+    loader = tloader.ArrayLoader(np.zeros((2, 1, 4, 4), np.float32), 2)
+    with pytest.raises((AssertionError, RuntimeError)):
+        Experiment(flow, loader, loader, loader, ExperimentConfig())
+    with pytest.raises((AssertionError, RuntimeError)):
+        MemoryTracker()

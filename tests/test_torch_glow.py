@@ -39,7 +39,7 @@ def flows():
     jflow = jax_build_glow((1, 28, 28), **KW)
     jparams = jax.jit(lambda key: jflow.init(key, (1, 28, 28))[0])(
         jax.random.PRNGKey(0))
-    tflow = build_glow((1, 28, 28), **KW)
+    tflow = build_glow((1, 28, 28), **KW, device="cpu")
     params_from_jax(tflow, jparams)
     rs = np.random.RandomState(0)
     x = rs.randint(0, 256, (B, 1, 28, 28)).astype(np.float32)
@@ -86,7 +86,7 @@ def test_experiment_eval_epoch_bpd(flows):
     data = np.concatenate([x, x[:3]])             # batches of 4, 4, 3
     val = ArrayLoader(data, 4, drop_last=False)
     exp = Experiment(copy.deepcopy(tflow), ArrayLoader(data, 4), val, val,
-                     ExperimentConfig(seed=0))
+                     ExperimentConfig(seed=0), device="cpu")
     before = fused_chain.chain_phases.launches
     logpx = exp.eval_epoch(val)
     assert fused_chain.chain_phases.launches == before

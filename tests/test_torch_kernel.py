@@ -30,13 +30,22 @@ CASES = [
     ((4, 14, 14), ("TL", "TR", "BL", "BR")),
 ]
 IDS = ["4x14x14-TL", "8x7x7-TL", "8x7x7-BR", "4x14x14-unit"]
+# the imagenet32 model's InvFlowUnit solve shapes (levels 1-3): N=4,
+# R=2, NB=8/4/2, RCW=KCW=384
+UNIT_SHAPES = [(12, 16, 16), (24, 8, 8), (48, 4, 4)]
+UNIT_IDS = ["12x16x16", "24x8x8", "48x4x4"]
+UNIT = ("TL", "TR", "BL", "BR")
 
 
 def _inputs(chw, n, b=3, seed=0):
+    """Inputs and ``n`` kernels of std 0.1 / sqrt(C), as chip_smoke.py
+    draws them: max|y| near 5 at every case (a std of 0.1 drives the
+    four-order chains at C >= 12 to |y| of 1e3-1e4)."""
     rs = np.random.RandomState(seed)
     c = chw[0]
     x = rs.randn(b, *chw).astype(np.float32)
-    ws = [0.1 * rs.randn(c, c, 3, 3).astype(np.float32) for _ in range(n)]
+    ws = [(0.1 / np.sqrt(c) * rs.randn(c, c, 3, 3)).astype(np.float32)
+          for _ in range(n)]
     return x, ws
 
 
@@ -150,6 +159,32 @@ def test_kernel_single_block(cuda_device, chw):
     dx, *dws = _vjp(chw, ("BR",), cuda_device, b=9)
     with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
         ref_dx, *ref_dws = _vjp(chw, ("BR",), cuda_device, b=9)
+    assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
+    for d, r in zip(dws, ref_dws):
+        assert (d - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chw", UNIT_SHAPES, ids=UNIT_IDS)
+def test_unit_kernel_matches_reference(cuda_device, chw):
+    """The four-order chain at the imagenet32 shapes, B=100, on the card:
+    the forward launch, and the backward (its launch on the complementary
+    orders with transposed kernels, and the four dW) against the same
+    Function on the plain recurrence."""
+    args = _args(chw, UNIT, 100, cuda_device)
+    assert args[0].shape[0] == chw[1] // 2             # NB, R=2
+    assert args[2].shape == (4, 384, 384)              # KCW = RCW
+    with torch.no_grad():
+        y = tfc.chain_phases(*args)
+    ref = tfc.chain_phases_reference(*args)
+    assert ref.abs().max().item() < 20      # the limit stays near 1e-4
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+    before = tfc.chain_phases.launches
+    dx, *dws = _vjp(chw, UNIT, cuda_device)
+    torch.cuda.synchronize()
+    assert tfc.chain_phases.launches == before + 2
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        ref_dx, *ref_dws = _vjp(chw, UNIT, cuda_device)
     assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
     for d, r in zip(dws, ref_dws):
         assert (d - r).abs().max() <= 1e-4 * r.abs().max()

@@ -262,11 +262,11 @@ def test_trajectory_matches_jax(tmp_path, jax_glow):
                                      opt_state=jexp.tx.init(params))
     jexp._data_initialized = True
 
-    tfull = build_glow((1, 28, 28), **GLOW_KW)
+    tfull = build_glow((1, 28, 28), **GLOW_KW, device="cpu")
     tflow = Flow(tfull.base_distribution, tfull.layers[1:])
     params_from_jax(tflow, jax.device_get(params))
     texp = Experiment(tflow, *(ArrayLoader(data, 8) for _ in range(3)),
-                      _traj_config(tmp_path, ExperimentConfig))
+                      _traj_config(tmp_path, ExperimentConfig), device="cpu")
     texp._data_initialized = True
 
     ours, ref = [], []
@@ -311,13 +311,14 @@ def _small_experiment(tmp_path, **kw):
     data = np.random.RandomState(15).randint(0, 256, (24, 1, 8, 8))
     flow = build_glow((1, 8, 8), num_blocks=1, block_size=2,
                       coupling_width=8,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     cfg = ExperimentConfig(name="small", batch_size=8, lr=1e-3,
                            weight_clamp=0.01, log_interval=1,
                            timing_interval=1, timing_window=2,
                            metrics_path=str(tmp_path / "m.jsonl"), **kw)
     loader = ArrayLoader(data.astype(np.float32), 8)
-    return Experiment(flow, loader, loader, loader, cfg)
+    return Experiment(flow, loader, loader, loader, cfg, device="cpu")
 
 
 def test_train_epoch_is_a_loop_of_train_steps(tmp_path):
@@ -398,7 +399,7 @@ def test_memory_tracker_without_a_card():
 
 def test_params_round_trip_through_jax_tree(jax_glow):
     _, jparams = jax_glow
-    tflow = build_glow((1, 28, 28), **GLOW_KW)
+    tflow = build_glow((1, 28, 28), **GLOW_KW, device="cpu")
     params_from_jax(tflow, jparams)
     back = params_to_jax(tflow)
     assert (jax.tree_util.tree_structure(back)
