@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths on two models at full width, random weights from
-seed 0, batch 100:
+Drives the port's paths on three models at full width, random weights
+from seed 0, batch 100:
 
 * the flagship ``if_glow_mnist`` (L=2 blocks x K=16 steps of
   ``InvFlowNoPad``, coupling width 512, RQ spline 5 bins): scoring
-  (``Experiment.maybe_data_init`` -> ``Flow.cheap_log_prob`` -> ``to_bpd``)
-  and training (``maybe_data_init`` -> ``train_epoch`` -> ``train_step``:
+  (``Experiment.maybe_data_init`` -> ``Flow.cheap_log_prob`` -> ``to_bpd``),
+  sampling (``Flow.sample``: masked convs, no chain) and training (``maybe_data_init`` -> ``train_epoch`` -> ``train_step``:
   loss, backward, Adam with warmup and ExponentialLR, weight clamp 0.01);
 * ``imagenet32`` (``bench.py``'s config: L=3 x K=48 ``InvFlowUnit``, the
   four-order chain, width 128, SLR; Adam lr 1e-5, no scheduler, no clamp)
-  on synthetic (3, 32, 32) images: data init, eval, training,
+  on synthetic (3, 32, 32) images: data init, eval, training;
+* ``ff_glow_mnist`` (L=2 x K=16 ``FincFlowUnit``, width 512, RQ spline 5
+  bins): data init, eval, sampling (``Flow.sample``,
+  ``Experiment.sample``: FincFlow's level-2 inverse on the chain kernel)
+  and training (grouped convs, no chain),
 
 in phases:
 
@@ -31,7 +35,8 @@ in phases:
      launch count, log p(x) against the same model on the plain chain, and
      eval ms/batch;
   6. profile: where the time of one eval batch goes
-     (:func:`profile_eval`);
+     (:func:`profile_eval`); the flagship's ``Flow.sample`` of 100: no
+     launch, finite samples, ms per 100 (:func:`flagship_sample`);
   7. train: data init and one epoch of 10 steps on the first 1,000
      synthetic training images with the registry's training config; every
      loss finite, the launch count, every weight within the clamp, the
@@ -42,7 +47,15 @@ in phases:
      model's three solve shapes against its plain version and timed
      beside it and the library call; data init and one eval batch; one
      epoch of 3 steps with launch counts, losses, step-1 gradients, train
-     ms/step, peak memory and a profiled step (:func:`phase_imagenet32`).
+     ms/step, peak memory and a profiled step (:func:`phase_imagenet32`);
+  9. ff: the kernel on FincFlow's expanded groups-4 kernel at its two
+     shapes, B=100 and B=1, against its plain version and timed beside it,
+     the library call and the bound; data init and one eval batch;
+     ``Flow.sample`` (launches, finite samples, kernel vs plain chain on
+     the same draws, round trips, ms per 100 images and per image, a
+     profiled sample, host ms by layer type, peak memory) and
+     ``Experiment.sample``; then 10 train steps with the registry's config
+     and no launch (:func:`phase_ff`).
 
 Every phase prints one line or more; the line before the last is the
 kernel summary as JSON, the last ``{"ok": true, "device": ...}``. Any
@@ -53,6 +66,7 @@ matmuls and cuDNN.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -80,6 +94,9 @@ UNIT = ("TL", "TR", "BL", "BR")
 UNIT_TRAIN_EXAMPLES = 300
 # |log p(x)| differences from summation order alone, float32, 38 layers
 LOGPX_RTOL = 1e-4
+# norm-relative differences of samples (before the final floor) and of
+# inverse(forward(x)) round trips, float32 through up to 38 layers
+SAMPLE_RTOL = 1e-4
 # norm-relative gradient differences, kernel vs plain chain, float32
 GRAD_RTOL = 1e-4
 # the library call (cuBLAS trsm on the dense operator) against the kernel:
@@ -408,10 +425,6 @@ def profile_eval(flow, x, generator, card, torch):
     layer for the host-clock time by layer type (exclusive of nested
     layers). The profiler's table goes to ``chiprun_out/profile_eval.txt``.
     """
-    from contextlib import ExitStack
-
-    from inverse_flow_tpu_torch.layers.base import FlowLayer
-
     def batch():
         return flow.cheap_log_prob(x, generator)
 
@@ -437,6 +450,14 @@ def profile_eval(flow, x, generator, card, torch):
               f"{statistics.median(ms):.3f}) {card}", flush=True)
     with torch.inference_mode():
         device_profile("eval", "batch", batch, 2, card, torch)
+    host_by_layer(flow, "forward_with", batch, "eval batch", torch)
+
+
+def host_by_layer(flow, method, fn, what, torch):
+    """One call of ``fn`` with a sync around every layer's ``method``
+    (``forward_with`` or ``inverse_with``): prints the host-clock ms by
+    layer type, exclusive of nested layers."""
+    from inverse_flow_tpu_torch.layers.base import FlowLayer
 
     by_type, nested = {}, []
 
@@ -456,14 +477,14 @@ def profile_eval(flow, x, generator, card, torch):
         return wrapper
 
     # the unpatched methods first: a subclass may inherit its parent's
-    originals = {type(m): type(m).forward_with for m in flow.modules()
+    originals = {type(m): getattr(type(m), method) for m in flow.modules()
                  if isinstance(m, FlowLayer)}
-    with ExitStack() as stack, torch.inference_mode():
-        for cls, fn in originals.items():
-            stack.enter_context(mock.patch.object(cls, "forward_with",
-                                                  timed(cls, fn)))
-        batch()
-    print("profile: host ms by layer type, one batch, synced: " + ", ".join(
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for cls, orig in originals.items():
+            stack.enter_context(mock.patch.object(cls, method,
+                                                  timed(cls, orig)))
+        fn()
+    print(f"profile: host ms by layer type, one {what}, synced: " + ", ".join(
         f"{k} {1e3 * v:.3f}" for k, v in sorted(
             by_type.items(), key=lambda kv: -kv[1])), flush=True)
 
@@ -760,8 +781,311 @@ def phase_imagenet32(dev, gen, card, torch):
                                                  (launches - bwd, bwd))]
 
 
+def grouped_operands(chw, b, gen, dev, torch):
+    """``b`` inputs (C, H, W) and the kernel of a ``FincFlowUnit`` inverse:
+    four (C/4, C/4, 3, 3) chunk kernels of the model's init scale
+    (normal(0, 0.05)), masked and expanded into one dense block-diagonal
+    kernel, as ``layers/padded_conv.py`` does."""
+    from inverse_flow_tpu_torch.ops.fused_chain import expand_grouped_kernel
+    from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
+
+    c = chw[0]
+    x = torch.randn((b,) + chw, generator=gen, device=dev)
+    w_eff = torch.cat([apply_mask(0.05 * torch.randn(
+        (c // 4, c // 4, 3, 3), generator=gen, device=dev))
+        for _ in range(4)])
+    return x, [expand_grouped_kernel(w_eff, 4)]
+
+
+def grouped_rows(gen, dev, card, torch):
+    """FincFlow's level-2 launch (N=1 TL on the expanded groups-4 kernel)
+    at its two shapes, at the sample batch and at one image: the kernel
+    against its plain version to ``1e-5 * max(1, max|y|)``, then its time
+    beside the plain version's, the library call's and the bound (which
+    counts nonzero products: the zero blocks lower the kernel's share of
+    it). Returns the summary entry (times at B=100, means over the shapes)
+    without its launch count."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    max_err, rows = 0.0, []
+    for b in (BATCH, 1):
+        for chw in FLAGSHIP_SHAPES:
+            x, ws = grouped_operands(chw, b, gen, dev, torch)
+            args = fused_chain.chain_inputs(x, ws, ("TL",))
+            with torch.inference_mode():
+                y = fused_chain.chain_phases(*args)
+                torch.cuda.synchronize()
+                ref = fused_chain.chain_phases_reference(*args)
+            err = (y - ref).abs().max().item()
+            tol = 1e-5 * max(1.0, ref.abs().max().item())
+            max_err = max(max_err, err)
+            if not err <= tol:
+                fail(f"the grouped chain kernel disagrees with its plain "
+                     f"version at {b} x {chw}: {err} > {tol}")
+            t, (bound, bound_by, fma), lib_err = time_launch(
+                x, ws, ("TL",), False, 100, 4, torch)
+            if b == BATCH:
+                rows.append((t["kernel"], t["plain"], t["library"], bound))
+            print(f"ff: kernel ({b},{','.join(map(str, chw))}) groups-4 TL: "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+                  f"{1e3 * t['kernel']:.2f} us, plain torch "
+                  f"{1e3 * t['plain']:.2f} us, library "
+                  f"{1e3 * t['library']:.2f} us per call; bound "
+                  f"{1e3 * bound:.3f} us ({bound_by}, {fma} multiply-adds "
+                  f"per batch row; the kernel at {bound / t['kernel']:.3%} "
+                  f"of it); library vs kernel max abs diff {lib_err:.3e} "
+                  f"{card}", flush=True)
+    means = [statistics.fmean(col) for col in zip(*rows)]
+    return dict(max_abs_err=max_err, ms=means[0], plain_ms=means[1],
+                library_ms=means[2], bound_ms=means[3], bound_by=bound_by)
+
+
+def sample_noise(flow, n, gen, dev, torch):
+    """Draws for ``flow.layers[1:]`` (the flow without its
+    Dequantization) as ``Flow.sample`` takes them: z from the base and
+    each SplitPrior's factored-out half, keyed by its index there."""
+    from inverse_flow_tpu_torch.layers import SplitPrior
+
+    noise = {"base": torch.randn((n,) + tuple(flow.base_distribution.size),
+                                 generator=gen, device=dev)}
+    for i, layer in enumerate(flow.layers[1:]):
+        if isinstance(layer, SplitPrior):
+            noise[i] = torch.randn((n,) + tuple(layer.base.size),
+                                   generator=gen, device=dev)
+    return noise
+
+
+def block_magnitudes(flow, noise, torch):
+    """One ``Flow.sample`` on ``noise`` with max|z| taken after every
+    layer's inverse. Returns [(layer type, max|z|)] in sampling order."""
+    from inverse_flow_tpu_torch.layers import Flow
+
+    seen = []
+
+    def recorded(layer):
+        inverse = layer.inverse
+
+        def wrapper(*args, **kwargs):
+            z = inverse(*args, **kwargs)
+            seen.append((type(layer).__name__, z.abs().max().item()))
+            return z
+        return wrapper
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    with contextlib.ExitStack() as stack:
+        for layer in body.layers:
+            stack.enter_context(mock.patch.object(layer, "inverse",
+                                                  recorded(layer)))
+        body.sample(noise["base"].shape[0], noise=noise)
+    return seen
+
+
+def flagship_sample(flow, gen, card, torch):
+    """The flagship's ``Flow.sample`` of 100 images: no chain launch (its
+    inverse is the masked conv), finite samples, ms per 100."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    fused_chain.chain_phases.launches = 0
+    x = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    t = ab_ms({"sample": lambda: flow.sample(BATCH, gen)}, reps=1, rounds=4,
+              torch=torch)
+    print(f"sample: flagship Flow.sample of {BATCH}: {launches} chain kernel "
+          f"launches, values {x.min().item():.0f}..{x.max().item():.0f}; "
+          f"{t['sample']:.3f} ms per {BATCH} images, median of 4 {card}",
+          flush=True)
+    if launches != 0 or x.shape != (BATCH, 1, 28, 28) \
+            or not torch.isfinite(x).all():
+        fail("the flagship's samples launched the chain or are not finite")
+
+
+def phase_ff(dev, gen, card, torch):
+    """Phase 9: ``ff_glow_mnist`` as the registry builds it
+    (``inverse_flow_tpu/experiments/registry.py:197-206``): L=2 x K=16
+    ``FincFlowUnit``, width 512, RQ spline 5 bins, batch 100, random
+    weights from seed 0, synthetic MNIST. Its training forward is a
+    grouped masked conv; its inverse, the sampling direction, is FincFlow's
+    level 2 on the chain kernel: 32 launches per ``Flow.sample``.
+
+    The grouped launch against its plain version and timed
+    (:func:`grouped_rows`); data init and one eval batch (no launch);
+    sampling on the data-initialised model at its init scale: one
+    ``Flow.sample`` with its launches counted and max|z| after every layer,
+    ``Experiment.sample`` (100 one-image samples, then 100 images and
+    their grid), kernel vs plain chain on the same draws before the final
+    floor, each RepeatedBlock's and one FincFlowUnit's round trip, sample
+    ms per 100 images and per image against the plain chain, a profiled
+    sample, the host ms by layer type of one sample, and peak memory;
+    then one epoch of 10 train steps with the registry's config: no
+    launch, finite losses, weights within the clamp, ms/step. Returns the
+    summary entry, its launches those of one ``Flow.sample``."""
+    from inverse_flow_tpu_torch.data import ArrayLoader, mnist
+    from inverse_flow_tpu_torch.layers import Flow, RepeatedBlock
+    from inverse_flow_tpu_torch.models.glow import build_glow
+    from inverse_flow_tpu_torch.ops import fused_chain
+    from inverse_flow_tpu_torch.train.config import ExperimentConfig
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    label, t_phase = "ff", time.perf_counter()
+    row = grouped_rows(gen, dev, card, torch)
+
+    gen = torch.Generator(dev).manual_seed(0)
+    flow = build_glow((1, 28, 28), step_kind="ff", num_blocks=2,
+                      block_size=16, coupling_width=512, actnorm=True,
+                      split_prior=True, activation="Spline", generator=gen,
+                      device=dev)
+    out = os.path.join(HERE, "chiprun_out")
+    cfg = ExperimentConfig(
+        name="2L-16K FF Glow MNIST", lr=1e-5, batch_size=BATCH,
+        modified_grad=True, add_recon_grad=True, sym_recon_grad=True,
+        recon_loss_weight=10.0, weight_clamp=0.01, scheduler_name="None",
+        max_eval_ex=BATCH, sample_dir=os.path.join(out, "samples_ff"),
+        metrics_path=os.path.join(out, "ff_metrics.jsonl"), seed=0)
+    with warnings.catch_warnings(record=True):   # phase 5 printed it
+        warnings.simplefilter("always")
+        train, val, test = mnist.load_data(batch_size=BATCH, seed=cfg.seed)
+    train = ArrayLoader(train.data[:TRAIN_EXAMPLES], BATCH, shuffle=True,
+                        seed=cfg.seed)
+    exp = Experiment(flow, train, val, test, cfg, device=dev)
+    n_params = sum(p.numel() for p in flow.parameters())
+    first = train.data[:BATCH]
+
+    fused_chain.chain_phases.launches = 0
+    exp.maybe_data_init(first)
+    bpd = exp.to_bpd(exp.eval_epoch(val))
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    print(f"{label}: {cfg.name} {n_params} params, data init + eval over 1 "
+          f"batch of {BATCH}: BPD {bpd:.4f}; chain kernel launches "
+          f"{launches} (the forward is a grouped conv)", flush=True)
+    if not math.isfinite(bpd) or launches:
+        fail(f"ff scoring: BPD {bpd}, {launches} chain launches")
+
+    # ---- sampling, the main path: counts set to 0 just before ----------
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_chain.chain_phases.launches = 0
+    x = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    sample_launches = fused_chain.chain_phases.launches
+    print(f"{label}: Flow.sample of {BATCH}: {sample_launches} chain kernel "
+          f"launches (one per FincFlowUnit: 16 + 16); values "
+          f"{x.min().item():.0f}..{x.max().item():.0f}", flush=True)
+    if sample_launches != 32:
+        fail(f"expected 32 chain kernel launches per Flow.sample, got "
+             f"{sample_launches}")
+    if x.shape != (BATCH, 1, 28, 28) or not torch.isfinite(x).all():
+        fail("ff samples have the wrong shape or are not finite")
+
+    noise = sample_noise(flow, BATCH, gen, dev, torch)
+    mags = block_magnitudes(flow, noise, torch)
+    print(f"{label}: max|z| after each layer's inverse, in sampling order: "
+          + ", ".join(f"{name} {m:.4g}" for name, m in mags), flush=True)
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    y = body.sample(BATCH, noise=noise)
+    with plain_chain(fused_chain):
+        y_ref = body.sample(BATCH, noise=noise)
+    rel = ((y - y_ref).norm() / y_ref.norm()).item()
+    print(f"{label}: samples before the floor, kernel vs plain chain on the "
+          f"same draws: |y - y_plain| / |y_plain| {rel:.3e} (tol "
+          f"{SAMPLE_RTOL:.0e}); max abs diff "
+          f"{(y - y_ref).abs().max().item():.3e}", flush=True)
+    if not (torch.isfinite(y).all() and rel <= SAMPLE_RTOL):
+        fail("ff samples through the kernel disagree with the plain chain")
+
+    with torch.inference_mode():
+        xb = torch.as_tensor(first, device=dev)
+        h = xb + torch.rand(xb.shape, generator=gen, device=dev)
+        trips = []
+        for layer in flow.layers[1:]:
+            if isinstance(layer, RepeatedBlock):
+                z = layer(h)[0]
+                trips.append(((layer.inverse(z) - h).norm()
+                              / h.norm()).item())
+                if len(trips) == 1:
+                    unit, p = layer.steps[1], layer._step_params(0)[1]
+                    u = torch.randn(h.shape, generator=gen, device=dev)
+                    unit_trip = ((unit.inverse_with(p, unit.forward_with(
+                        p, u)[0]) - u).norm() / u.norm()).item()
+            h = layer(h)[0]
+    print(f"{label}: round trips |inverse(forward(x)) - x| / |x|: "
+          f"RepeatedBlocks {', '.join(f'{r:.3e}' for r in trips)}; one "
+          f"FincFlowUnit {unit_trip:.3e} (tol {SAMPLE_RTOL:.0e})", flush=True)
+    if not max(trips + [unit_trip]) <= SAMPLE_RTOL:
+        fail("an ff inverse does not undo its forward")
+
+    t = ab_ms({"kernel": lambda: flow.sample(BATCH, gen),
+               "plain": lambda: plain_sample(flow, BATCH, gen)},
+              reps=1, rounds=4, torch=torch)
+    t1 = ab_ms({"kernel": lambda: flow.sample(1, gen),
+                "plain": lambda: plain_sample(flow, 1, gen)},
+               reps=1, rounds=4, torch=torch)
+    print(f"{label}: Flow.sample {t['kernel']:.3f} ms per {BATCH} images "
+          f"(plain chain {t['plain']:.3f}), {t1['kernel']:.3f} ms per image "
+          f"at n=1 (plain chain {t1['plain']:.3f}), CUDA events, medians of "
+          f"4 turns {card}", flush=True)
+    busy, calls = device_profile("sample_ff", "Flow.sample",
+                                 lambda: flow.sample(BATCH, gen), 2, card,
+                                 torch)
+    host_by_layer(flow, "inverse_with", lambda: flow.sample(BATCH, gen),
+                  f"Flow.sample of {BATCH}", torch)
+
+    fused_chain.chain_phases.launches = 0
+    samples = exp.sample(1)
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    n_one = max(5, min(cfg.n_samples, 100))
+    png = os.path.join(cfg.sample_dir, "1.png")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{label}: Experiment.sample: Sample Time Mean "
+          f"{exp.sample_time.mean:.3f} ms, Std {exp.sample_time.std:.3f} ms "
+          f"(the middle {n_one - 2 * (n_one // 5)} of {n_one} one-image "
+          f"samples); {launches} chain kernel launches (32 x {n_one + 2}); "
+          f"grid {os.path.relpath(png, HERE)}; peak memory while sampling "
+          f"{peak_gb:.3f} GB {card}", flush=True)
+    if launches != 32 * (n_one + 2) or not os.path.exists(png) \
+            or not torch.isfinite(samples).all():
+        fail(f"Experiment.sample: {launches} launches, grid written "
+             f"{os.path.exists(png)}")
+
+    # ---- training: FincFlow's forward reaches no chain ------------------
+    values, mean_loss, launches, bwd, _ = counted_epoch(exp, first, torch)
+    w_max = max(p.detach().abs().max().item() for p in flow.parameters())
+    xb = torch.as_tensor(first, device=dev)
+    ts = ab_ms({"step": lambda: exp.train_step(xb)}, reps=2, rounds=4,
+               torch=torch)
+    print(f"{label}: {len(values)} steps of {BATCH} (Adam lr {cfg.lr}, "
+          f"warmup {cfg.warmup_epochs} epochs, no scheduler, clamp "
+          f"{cfg.weight_clamp}, recon weight {cfg.recon_loss_weight} and no "
+          f"recon layer): losses {', '.join(f'{v:.4f}' for v in values)}; "
+          f"chain kernel launches {launches}; max |weight| {w_max:.6f}; "
+          f"{ts['step']:.3f} ms/step, median of 4 turns of 2 {card}",
+          flush=True)
+    if len(values) != len(train) or not all(map(math.isfinite, values)):
+        fail(f"expected {len(train)} finite ff losses, got {values}")
+    if launches or bwd:
+        fail(f"ff training launched the chain kernel {launches} times")
+    if not w_max <= cfg.weight_clamp * (1 + 1e-6):
+        fail(f"an ff weight exceeds the clamp: {w_max}")
+    print(f"{label}: per Flow.sample of {BATCH}: device busy {busy:.3f} ms, "
+          f"{calls:.0f} kernel launch calls, {sample_launches} chain "
+          f"launches; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(row, launches=sample_launches)
+
+
+def plain_sample(flow, n, gen):
+    """``flow.sample`` with every solve on the kernel's plain version."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    with plain_chain(fused_chain):
+        return flow.sample(n, gen)
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
 
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -884,6 +1208,7 @@ def main():
 
     # ---- 6. profile -----------------------------------------------------
     profile_eval(flow, x, exp.generator, card, torch)
+    flagship_sample(flow, gen, card, torch)
 
     # ---- 7. train -------------------------------------------------------
     fwd_launches, bwd_launches = phase_train(dev, card, torch)
@@ -891,12 +1216,18 @@ def main():
     # ---- 8. imagenet32 --------------------------------------------------
     unit_rows = phase_imagenet32(dev, gen, card, torch)
 
+    # ---- 9. ff ----------------------------------------------------------
+    grouped_row = phase_ff(dev, gen, card, torch)
+
+    print(f"smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     kernel = {"route": "cuda",
               "source": "inverse_flow_tpu_torch/csrc/chain_solve.cu",
               "replaces": "inverse_flow_tpu/ops/fused_chain.py:209"}
     # times and bounds: means over each path's solve shapes, which it
     # launches equally often; launches: each path's train run (phases 7
-    # and 8, the counts set to 0 just before)
+    # and 8, the counts set to 0 just before), and for the grouped launch
+    # one Flow.sample of ff_glow_mnist (phase 9)
     print(json.dumps({"kernels": [
         dict(name="chain_phases", **kernel, launches=fwd_launches,
              max_abs_err=max_err, **fwd_times),
@@ -904,7 +1235,9 @@ def main():
              launches=bwd_launches, max_abs_err=bwd_err, **bwd_times),
         dict(name="chain_phases:unit", **kernel, **unit_rows[0]),
         dict(name="chain_phases:unit_backward", **kernel,
-             **unit_rows[1])]}), flush=True)
+             **unit_rows[1]),
+        dict(name="chain_phases:grouped", **kernel, **grouped_row)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,7 @@ from .coupling import Coupling
 from .splitprior import SplitPrior
 from .activations import SmoothLeakyRelu, SplineActivation
 from .inv_flow import InvFlow, InvFlowNoPad, InvFlowUnit
+from .padded_conv import FincFlowUnit, PaddedConv2d
 from .repeated import RepeatedBlock
 
 __all__ = [
@@ -14,5 +15,5 @@ __all__ = [
     "Dequantization", "Normalization", "LogitTransform", "ActNorm",
     "Squeeze", "Coupling", "SplitPrior", "SmoothLeakyRelu",
     "SplineActivation", "InvFlow", "InvFlowNoPad", "InvFlowUnit",
-    "RepeatedBlock",
+    "PaddedConv2d", "FincFlowUnit", "RepeatedBlock",
 ]

@@ -2,8 +2,9 @@
 
 Port of ``inverse_flow_tpu/layers/activations.py``: ``SplineActivation``
 with ``individual_weights=True``, the flagship's setting (one knot set per
-tensor position, shared over the batch), and ``SmoothLeakyRelu``, forward
-direction.
+tensor position, shared over the batch), both directions, and
+``SmoothLeakyRelu``, forward direction (its Newton inverse is not ported:
+``inverse`` raises).
 """
 
 from __future__ import annotations
@@ -39,6 +40,11 @@ class SplineActivation(FlowLayer):
             x, p["widths"], p["heights"], p["derivs"],
             tail_bound=self.tail_bound)
         return out, sum_except_batch(ld)
+
+    def inverse_with(self, p, z, generator=None):
+        return unconstrained_rational_quadratic_spline(
+            z, p["widths"], p["heights"], p["derivs"], inverse=True,
+            tail_bound=self.tail_bound)[0]
 
 
 class SmoothLeakyRelu(FlowLayer):

@@ -13,7 +13,7 @@ from .base import FlowLayer
 
 class ActNorm(FlowLayer):
     """``out = (x - t) * exp(-log_s)`` per channel; ldj
-    ``-sum(log_s) * H * W``."""
+    ``-sum(log_s) * H * W``; inverse ``z * exp(log_s) + t``."""
 
     def __init__(self, n_dims: int, generator=None, device=None):
         super().__init__()
@@ -35,3 +35,8 @@ class ActNorm(FlowLayer):
         log_s = p["log_scale"].reshape(1, -1, 1, 1)
         ldj = -p["log_scale"].sum() * x.shape[2] * x.shape[3]
         return (x - t) * torch.exp(-log_s), ldj.expand(x.shape[0])
+
+    def inverse_with(self, p, z, generator=None):
+        t = p["translation"].reshape(1, -1, 1, 1)
+        log_s = p["log_scale"].reshape(1, -1, 1, 1)
+        return z * torch.exp(log_s) + t

@@ -10,6 +10,9 @@ whose parameters carry the names of the JAX params pytree:
     given as a dict of tensors under their dotted names (a child module's
     as ``convs.0.w``). ``RepeatedBlock`` keeps its K steps' parameters
     stacked and runs step k on the k-th slices.
+  * ``inverse(z, generator=None) -> x`` and ``inverse_with(p, z,
+    generator=None)``: the sampling direction, mirroring ``forward`` and
+    ``forward_with``; a layer without one raises ``NotImplementedError``.
   * ``data_init_with(p, x)``: data-dependent initialisation, written in
     place into ``p`` (ActNorm); a no-op by default.
 """
@@ -49,6 +52,13 @@ class FlowLayer(nn.Module):
 
     def forward_with(self, p, x, generator=None):
         raise NotImplementedError
+
+    def inverse(self, z, generator=None):
+        return self.inverse_with(self.own_params(), z, generator)
+
+    def inverse_with(self, p, z, generator=None):
+        raise NotImplementedError(
+            f"{type(self).__name__}.inverse is not ported")
 
     def data_init_with(self, p, x):
         """Data-dependent init, in place on ``p``; default is a no-op."""

@@ -3,7 +3,8 @@
 Port of ``inverse_flow_tpu/layers/coupling.py:Coupling`` (float32): net
 conv3x3 -> ReLU -> conv1x1 -> ReLU -> Conv2dZero (zero init, ReZero
 log-scale); ``log_s = 2*tanh(h/2)``; even/odd channel split of the net
-output. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
+output; the inverse runs the same net on the first half and undoes the
+affine map. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` in the JAX layer): its activations are recomputed in
 the backward instead of kept; the values are the same.
 """
@@ -53,7 +54,9 @@ class Coupling(FlowLayer):
         return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
             1, -1, 1, 1)
 
-    def forward_with(self, p, x, generator=None):
+    def _split_logs_t(self, p, x):
+        """(x1, x2, log_s, t): the halves and the affine map that x1's net
+        gives the second half."""
         x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
         if self.remat_net and torch.is_grad_enabled():
             # the net draws no random numbers: no RNG state to replay
@@ -61,6 +64,13 @@ class Coupling(FlowLayer):
                            preserve_rng_state=False)
         else:
             h = self._net(p, x1)
-        log_s = 2.0 * torch.tanh(h[:, ::2] / 2.0)
-        z2 = x2 * torch.exp(log_s) + h[:, 1::2]
+        return x1, x2, 2.0 * torch.tanh(h[:, ::2] / 2.0), h[:, 1::2]
+
+    def forward_with(self, p, x, generator=None):
+        x1, x2, log_s, t = self._split_logs_t(p, x)
+        z2 = x2 * torch.exp(log_s) + t
         return torch.cat([x1, z2], dim=1), sum_except_batch(log_s)
+
+    def inverse_with(self, p, z, generator=None):
+        x1, z2, log_s, t = self._split_logs_t(p, z)
+        return torch.cat([x1, (z2 - t) * torch.exp(-log_s)], dim=1)

@@ -1,7 +1,7 @@
 """Inverse-Flow convolution layers: the inverse of a masked convolution.
 
 Port of ``inverse_flow_tpu/layers/inv_flow.py:InvFlow``/``InvFlowNoPad``
-and ``InvFlowUnit``, training direction, exact solver. The solve runs
+and ``InvFlowUnit``, exact solver, both directions. The solve runs
 through :func:`~inverse_flow_tpu_torch.ops.fused_chain.fused_chain_solve`
 with one order (four for the unit): the chain kernel on a CUDA tensor,
 its plain version on a CPU tensor, in the forward and again
@@ -9,7 +9,8 @@ its plain version on a CPU tensor, in the forward and again
 autograd carries the weight gradient back through ``apply_mask``. ldj is
 exactly 0 (the masked conv is unit lower triangular in raster order). The
 weights are stored in canonical TL orientation; the order's flips are
-absorbed into the solve matrices.
+absorbed into the solve matrices. The inverse (sampling) direction is
+the masked conv, a plain ``F.conv2d`` after the order's flips.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..ops.fused_chain import ORDER_FLAGS, fused_chain_solve
-from ..ops.inv_conv import apply_mask
+from ..ops.fused_chain import (ORDER_FLAGS, expand_grouped_kernel, flip_to,
+                               fused_chain_solve)
+from ..ops.inv_conv import apply_mask, masked_conv_apply
 from .base import FlowLayer, zeros_ldj
 
 # the orders of an InvFlowUnit, in the order they are solved
@@ -35,25 +37,46 @@ def _xavier_noise(shape, generator, device, gain=0.01):
 
 
 class InvFlow(FlowLayer):
-    """forward: ``y = T^{-1} x``, the inverse of the masked conv ``T``."""
+    """forward: ``y = T^{-1} x``, the inverse of the masked conv ``T``;
+    inverse: ``x = T y``, the masked conv itself (a plain conv, as in the
+    JAX package). With ``groups`` > 1 the weight is (C, C/groups, KH, KW),
+    masked per group, and the solve runs on its dense block-diagonal
+    expansion."""
 
     def __init__(self, channels: int, kernel_size: Tuple[int, int] = (3, 3),
-                 order: str = "TL", solver: str = "exact", generator=None,
-                 device=None):
+                 order: str = "TL", solver: str = "exact", groups: int = 1,
+                 generator=None, device=None):
         super().__init__()
         if order not in ORDER_FLAGS:
             raise ValueError(f"unknown order: {order}")
         if solver != "exact":
             raise NotImplementedError(
                 f"InvFlow: solver {solver!r} is not ported; use 'exact'")
+        if channels % groups:
+            raise ValueError(f"{channels} channels in {groups} groups")
         self.kernel_size = tuple(kernel_size)
         self.order = order
+        self.groups = groups
         self.w = nn.Parameter(_xavier_noise(
-            (channels, channels) + self.kernel_size, generator, device))
+            (channels, channels // groups) + self.kernel_size, generator,
+            device))
+
+    def _w_eff(self, p):
+        """The masked kernel, each group's (C/g, C/g) block masked on its
+        own."""
+        w = p["w"]
+        cg = w.shape[1]
+        return torch.cat([apply_mask(w[i:i + cg])
+                          for i in range(0, w.shape[0], cg)])
 
     def forward_with(self, p, x, generator=None):
-        y = fused_chain_solve(x, (apply_mask(p["w"]),), (self.order,))
-        return y, zeros_ldj(x)
+        w = expand_grouped_kernel(self._w_eff(p), self.groups)
+        return fused_chain_solve(x, (w,), (self.order,)), zeros_ldj(x)
+
+    def inverse_with(self, p, z, generator=None):
+        x = masked_conv_apply(flip_to(z, self.order), self._w_eff(p),
+                              self.groups)
+        return flip_to(x, self.order)
 
 
 class InvFlowNoPad(InvFlow):
@@ -85,3 +108,9 @@ class InvFlowUnit(FlowLayer):
         w_effs = tuple(apply_mask(p[f"convs.{i}.w"])
                        for i in range(len(ORDERS)))
         return fused_chain_solve(x, w_effs, ORDERS), zeros_ldj(x)
+
+    def inverse_with(self, p, z, generator=None):
+        """The four masked convs, BR -> BL -> TR -> TL."""
+        for i in reversed(range(len(ORDERS))):
+            z = self.convs[i].inverse_with({"w": p[f"convs.{i}.w"]}, z)
+        return z

@@ -1,4 +1,5 @@
-"""Preprocessing layers: dequantization, normalization, logit.
+"""Preprocessing layers: dequantization, normalization, logit; their
+inverses floor, rescale and take the sigmoid.
 
 Port of ``inverse_flow_tpu/layers/preprocess.py``.
 """
@@ -37,6 +38,9 @@ class Dequantization(FlowLayer):
     def forward(self, x, generator=None, noise=None):
         return self.forward_with({}, x, generator, noise)
 
+    def inverse_with(self, p, z, generator=None):
+        return torch.floor(z)
+
 
 class Normalization(FlowLayer):
     """Affine ``(x - translation) / scale`` with ``ldj = -D*log(scale)``."""
@@ -55,6 +59,9 @@ class Normalization(FlowLayer):
         ldj = -d * np.log(np.float32(self.scale))
         return z, torch.full((x.shape[0],), float(ldj), device=x.device)
 
+    def inverse_with(self, p, z, generator=None):
+        return z * self.scale + self.translation
+
 
 class LogitTransform(FlowLayer):
     """``z = logit(x)`` with ``ldj = sum(-log x - log(1-x))``."""
@@ -64,3 +71,6 @@ class LogitTransform(FlowLayer):
     def forward_with(self, p, x, generator=None):
         z = torch.log(x) - torch.log1p(-x)
         return z, sum_except_batch(-torch.log(x) - torch.log1p(-x))
+
+    def inverse_with(self, p, z, generator=None):
+        return torch.sigmoid(z)

@@ -1,8 +1,8 @@
 """K identical flow steps with their parameters stacked on a leading K
 axis, as in the JAX params pytree.
 
-Port of ``inverse_flow_tpu/layers/repeated.py:RepeatedBlock`` (forward and
-``data_init``): the JAX ``lax.scan`` over the stacked parameters becomes a
+Port of ``inverse_flow_tpu/layers/repeated.py:RepeatedBlock`` (forward,
+inverse and ``data_init``): the JAX ``lax.scan`` over the stacked parameters becomes a
 loop over k that hands each step layer the k-th slices; indexing the
 stacked parameters is differentiable, so their gradients stack as the
 JAX ones do. ``remat`` checkpoints each step, as ``jax.checkpoint`` on the
@@ -24,8 +24,9 @@ class RepeatedBlock(FlowLayer):
     """``make_step()`` returns one step's layers (shape preserving, no
     randomness); it is called ``n_repeats`` times so that every step gets
     its own initial parameters, which are then stacked, a step layer's
-    child modules' (``InvFlowUnit``'s ``convs.i.w``) included: the JAX
-    names ``steps.j.convs.i.w`` with shape (K, ...)."""
+    child modules' (``InvFlowUnit``'s ``convs.i.w``, ``FincFlowUnit``'s
+    ``ws.i`` in a ``ParameterList``) included: the JAX names
+    ``steps.j.convs.i.w`` with shape (K, ...)."""
 
     def __init__(self, make_step: Callable[[], Sequence[FlowLayer]],
                  n_repeats: int, remat: bool = False):
@@ -63,6 +64,15 @@ class RepeatedBlock(FlowLayer):
                 x, l = self._step(k, x)
             ldj = ldj + l
         return x, ldj
+
+    def inverse_with(self, p, z, generator=None):
+        """The K steps in reverse, each step's layers in reverse, on the
+        k-th slices."""
+        for k in reversed(range(self.n_repeats)):
+            for layer, pk in reversed(list(zip(self.steps,
+                                               self._step_params(k)))):
+                z = layer.inverse_with(pk, z)
+        return z
 
     @torch.no_grad()
     def data_init_with(self, p, x):

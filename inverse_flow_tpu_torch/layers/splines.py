@@ -1,6 +1,6 @@
 """Unconstrained rational-quadratic splines (Durkan et al.).
 
-Port of ``inverse_flow_tpu/layers/splines.py:22-172`` (forward direction).
+Port of ``inverse_flow_tpu/layers/splines.py:22-158``, both directions.
 The bin parameters are computed at their own shape and broadcast to the
 inputs only where a bin is selected (``torch.gather``).
 """
@@ -28,12 +28,13 @@ def _searchsorted(bin_locations, inputs, eps=1e-6):
 
 def unconstrained_rational_quadratic_spline(
         inputs, unnormalized_widths, unnormalized_heights,
-        unnormalized_derivatives, tail_bound=1.0,
+        unnormalized_derivatives, inverse=False, tail_bound=1.0,
         min_bin_width=DEFAULT_MIN_BIN_WIDTH,
         min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
         min_derivative=DEFAULT_MIN_DERIVATIVE):
-    """Identity tails outside [-tail_bound, tail_bound]; RQ spline inside.
-    Returns (outputs, logabsdet) elementwise."""
+    """Identity tails outside [-tail_bound, tail_bound]; RQ spline inside
+    (its inverse when ``inverse``). Returns (outputs, logabsdet)
+    elementwise."""
     inside = (inputs >= -tail_bound) & (inputs <= tail_bound)
     # boundary derivatives padded so softplus(c) + min_derivative == 1:
     # slope-1 tails, C1 at the bounds
@@ -43,8 +44,9 @@ def unconstrained_rational_quadratic_spline(
     clamped = inputs.clamp(-tail_bound, tail_bound)
     out_in, ldj_in = rational_quadratic_spline(
         clamped, unnormalized_widths, unnormalized_heights,
-        unnormalized_derivatives, left=-tail_bound, right=tail_bound,
-        bottom=-tail_bound, top=tail_bound, min_bin_width=min_bin_width,
+        unnormalized_derivatives, inverse=inverse, left=-tail_bound,
+        right=tail_bound, bottom=-tail_bound, top=tail_bound,
+        min_bin_width=min_bin_width,
         min_bin_height=min_bin_height, min_derivative=min_derivative)
     return (torch.where(inside, out_in, inputs),
             torch.where(inside, ldj_in, 0.0))
@@ -63,11 +65,11 @@ def _knots(unnormalized, num_bins, lo, hi, min_bin):
 
 def rational_quadratic_spline(
         inputs, unnormalized_widths, unnormalized_heights,
-        unnormalized_derivatives, left=0.0, right=1.0, bottom=0.0, top=1.0,
-        min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+        unnormalized_derivatives, inverse=False, left=0.0, right=1.0,
+        bottom=0.0, top=1.0, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
         min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
         min_derivative=DEFAULT_MIN_DERIVATIVE):
-    """Forward RQ spline on [left, right] -> [bottom, top]. The bin
+    """RQ spline on [left, right] -> [bottom, top], or its inverse. The bin
     parameters broadcast against ``inputs[..., None]``."""
     num_bins = unnormalized_widths.shape[-1]
     widths, cumwidths = _knots(unnormalized_widths, num_bins, left, right,
@@ -78,7 +80,7 @@ def rational_quadratic_spline(
     delta = heights / widths
 
     lead = inputs.shape
-    bin_idx = _searchsorted(cumwidths, inputs)
+    bin_idx = _searchsorted(cumheights if inverse else cumwidths, inputs)
     bin_idx = bin_idx.clamp(0, num_bins - 1)[..., None]
 
     def gather(t):
@@ -91,17 +93,30 @@ def rational_quadratic_spline(
     input_derivatives = gather(derivatives[..., :-1])
     input_derivatives_plus_one = gather(derivatives[..., 1:])
     input_heights = gather(heights)
-
-    theta = (inputs - input_cumwidths) / input_bin_widths
-    theta_one_minus_theta = theta * (1 - theta)
     d_sum = input_derivatives + input_derivatives_plus_one - 2 * input_delta
-    numerator = input_heights * (input_delta * theta ** 2
-                                 + input_derivatives * theta_one_minus_theta)
+
+    if inverse:
+        # the root of the bin's quadratic in theta, in the form that stays
+        # accurate where a -> 0; the discriminant clamped at 0 as in JAX
+        dy = inputs - input_cumheights
+        a = dy * d_sum + input_heights * (input_delta - input_derivatives)
+        b = input_heights * input_derivatives - dy * d_sum
+        c = -input_delta * dy
+        discriminant = (b * b - 4 * a * c).clamp_min(0.0)
+        theta = (2 * c) / (-b - torch.sqrt(discriminant))
+        outputs = theta * input_bin_widths + input_cumwidths
+    else:
+        theta = (inputs - input_cumwidths) / input_bin_widths
+    theta_one_minus_theta = theta * (1 - theta)
     denominator = input_delta + d_sum * theta_one_minus_theta
-    outputs = input_cumheights + numerator / denominator
+    if not inverse:
+        numerator = input_heights * (input_delta * theta ** 2
+                                     + input_derivatives
+                                     * theta_one_minus_theta)
+        outputs = input_cumheights + numerator / denominator
     derivative_numerator = input_delta ** 2 * (
         input_derivatives_plus_one * theta ** 2
         + 2 * input_delta * theta_one_minus_theta
         + input_derivatives * (1 - theta) ** 2)
     logabsdet = torch.log(derivative_numerator) - 2 * torch.log(denominator)
-    return outputs, logabsdet
+    return outputs, (-logabsdet if inverse else logabsdet)

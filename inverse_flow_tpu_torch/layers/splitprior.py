@@ -1,11 +1,14 @@
 """SplitPrior: coupling, then factor out half the channels under a
 standard normal whose log-prob joins the layer's ldj.
 
-Port of ``inverse_flow_tpu/layers/splitprior.py:SplitPrior.forward``. Its
-parameters are the coupling's, under the same names.
+Port of ``inverse_flow_tpu/layers/splitprior.py:SplitPrior``: the inverse
+draws the factored-out half from that normal, concatenates it and inverts
+the coupling. Its parameters are the coupling's, under the same names.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..distributions import GaussianPrior
 from .coupling import Coupling
@@ -24,3 +27,17 @@ class SplitPrior(Coupling):
         z, ldj = super().forward_with(p, x)
         c_half = z.shape[1] // 2
         return z[:, :c_half], self.base.log_prob(z[:, c_half:]) + ldj
+
+    def inverse_with(self, p, z, generator=None, noise=None):
+        """The factored-out half is drawn from the base with
+        ``generator`` on z's device, or given as ``noise``."""
+        if noise is None:
+            if generator is None:
+                raise ValueError(
+                    "SplitPrior.inverse needs a generator or noise")
+            noise, _ = self.base.sample(generator, z.shape[0],
+                                        device=z.device)
+        return super().inverse_with(p, torch.cat([z, noise], dim=1))
+
+    def inverse(self, z, generator=None, noise=None):
+        return self.inverse_with(self.own_params(), z, generator, noise)

@@ -14,6 +14,15 @@ def space_to_depth(x):
     return x.permute(0, 1, 3, 5, 2, 4).reshape(b, c * 4, h // 2, w // 2)
 
 
+def depth_to_space(x):
+    b, c, h, w = x.shape
+    x = x.reshape(b, c // 4, 2, 2, h, w)
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(b, c // 4, h * 2, w * 2)
+
+
 class Squeeze(FlowLayer):
     def forward_with(self, p, x, generator=None):
         return space_to_depth(x), zeros_ldj(x)
+
+    def inverse_with(self, p, z, generator=None):
+        return depth_to_space(z)

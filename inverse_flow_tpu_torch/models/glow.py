@@ -1,9 +1,10 @@
 """Glow-style model builder.
 
 Port of ``inverse_flow_tpu/models/glow.py:build_glow`` for the step kinds
-``inv_conv_no_pad`` (the flagship ``if_glow_mnist``) and ``inv_flow_unit``
+``inv_conv_no_pad`` (the flagship ``if_glow_mnist``), ``inv_flow_unit``
 with its ``_exact``/``_fused`` spellings (the ``imagenet32`` bench
-config), and the activations ``Spline`` and ``SLR``: squeeze + K steps of
+config) and ``ff`` (``FincFlowUnit``, ``ff_glow_mnist``), and the
+activations ``Spline`` and ``SLR``: squeeze + K steps of
 [ActNorm, step layer, activation, Coupling] per block, a SplitPrior
 between blocks.
 """
@@ -11,8 +12,8 @@ between blocks.
 from __future__ import annotations
 
 from ..distributions import GaussianPrior, UniformDistribution
-from ..layers import (ActNorm, Coupling, Dequantization, Flow, InvFlowNoPad,
-                      InvFlowUnit, LogitTransform, Normalization,
+from ..layers import (ActNorm, Coupling, Dequantization, FincFlowUnit, Flow,
+                      InvFlowNoPad, InvFlowUnit, LogitTransform, Normalization,
                       RepeatedBlock, SmoothLeakyRelu, SplineActivation,
                       SplitPrior, Squeeze)
 
@@ -37,6 +38,8 @@ def make_activation(name: str, n_bins=5, tail_bound=20.0, generator=None,
 def _step_layer(kind: str, c: int, kernel, **init):
     if kind == "inv_conv_no_pad":
         return InvFlowNoPad(c, kernel, **init)
+    if kind == "ff":
+        return FincFlowUnit(c, (3, 3), **init)      # 3x3, as in JAX
     return InvFlowUnit(c, kernel, solver=_UNIT_SOLVERS[kind], **init)
 
 
@@ -61,7 +64,8 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
     checkpoint every coupling net). The parameters are drawn from
     ``generator`` on ``device``, the CUDA card unless the caller names
     another."""
-    if step_kind != "inv_conv_no_pad" and step_kind not in _UNIT_SOLVERS:
+    if step_kind not in ("inv_conv_no_pad", "ff") and \
+            step_kind not in _UNIT_SOLVERS:
         raise NotImplementedError(f"step kind {step_kind!r} is not ported")
     if coupling_dtype != "float32":
         raise NotImplementedError(

@@ -15,6 +15,10 @@ CUDA tensor, and :func:`chain_phases_reference`, the same function in plain
 torch, on a CPU tensor. The operator build (:func:`_phase_matrices`) is
 plain torch on either device, one batched pass over the N orders' kernels.
 
+A grouped kernel (FincFlow's level 2, a grouped ``InvFlow``) enters the
+chain as its dense block-diagonal expansion (:func:`expand_grouped_kernel`),
+as in the JAX package.
+
 The backward (:class:`FusedChainSolve`) is again a chain: the cotangent
 walks the orders in reverse, each with its complementary orientation
 (``_COMPLEMENT``: flip both axes) and its channel-transposed kernel, so the
@@ -76,9 +80,12 @@ def _cw_perm(width, c, fw, device):
     return (width - 1 - i // c) * c + i % c
 
 
-def _flip_axes(order):
-    fh, fw = ORDER_FLAGS[order]
-    return tuple(a for a, f in ((2, fh), (3, fw)) if f)
+def flip_to(x, order):
+    """NCHW ``x`` flipped into ``order``'s orientation (H when it flips
+    H, W when it flips W); the flips are involutions, so the same call
+    flips back."""
+    ax = tuple(a for a, f in zip((2, 3), ORDER_FLAGS[order]) if f)
+    return x.flip(ax) if ax else x
 
 
 def _rows_perm(rows, width, c, fh, fw, device):
@@ -272,14 +279,30 @@ class FusedChainSolve(torch.autograd.Function):
         gphases = chain_phases(*backward_inputs(gy, w_effs, orders))
         dws = []
         for l, order in enumerate(orders):
-            ax = _flip_axes(order)
-            dx_l = _from_blocks_trim(gphases[n - 1 - l], c, h, width)
-            y_l = _from_blocks_trim(phases[l], c, h, width)
-            if ax:
-                dx_l, y_l = dx_l.flip(ax), y_l.flip(ax)
+            dx_l = flip_to(_from_blocks_trim(gphases[n - 1 - l], c, h,
+                                             width), order)
+            y_l = flip_to(_from_blocks_trim(phases[l], c, h, width), order)
             dws.append(_solve_wgrad(y_l, dx_l, kh, kw))
         dx = _from_blocks_trim(gphases[-1], c, h, width)
         return (None, dx, *dws)
+
+
+def expand_grouped_kernel(w_eff, groups: int):
+    """The dense (C, C, KH, KW) kernel of a grouped one ``w_eff`` (C,
+    C/groups, KH, KW): the group blocks on the channel block-diagonal,
+    zeros elsewhere, so that the chain solves a grouped conv (FincFlow's
+    level 2: four orders' chunks in one launch) as an ungrouped one. A
+    product with the identity over the groups, not a scatter into a
+    buffer: autograd carries the dense kernel's gradient back to the
+    group blocks only."""
+    if groups == 1:
+        return w_eff
+    c, cg = w_eff.shape[0], w_eff.shape[0] // groups
+    taps = w_eff.shape[2:]
+    wg = w_eff.reshape(groups, cg, 1, cg, *taps)
+    eye = torch.eye(groups, dtype=w_eff.dtype, device=w_eff.device)
+    return (wg * eye.reshape(groups, 1, groups, 1, 1, 1)).reshape(c, c,
+                                                                  *taps)
 
 
 def fused_chain_solve(x, w_effs, orders):

@@ -66,23 +66,24 @@ def apply_mask(w):
 
 
 # ---------------------------------------------------------------------------
-# The masked convolution itself (sampling direction, test oracle)
+# The masked convolution itself (the inverse direction, test oracle)
 # ---------------------------------------------------------------------------
 
-def masked_conv_apply(y, w_eff):
-    """``z = T y``: conv with TL zero padding (KH-1 top, KW-1 left)."""
+def masked_conv_apply(y, w_eff, groups: int = 1):
+    """``z = T y``: conv with TL zero padding (KH-1 top, KW-1 left);
+    ``w_eff`` (C, C/groups, KH, KW) for a grouped conv."""
     kh, kw = w_eff.shape[2], w_eff.shape[3]
-    return F.conv2d(F.pad(y, (kw - 1, 0, kh - 1, 0)), w_eff)
+    return F.conv2d(F.pad(y, (kw - 1, 0, kh - 1, 0)), w_eff, groups=groups)
 
 
-def dense_operator(w_eff, c: int, h: int, width: int):
+def dense_operator(w_eff, c: int, h: int, width: int, groups: int = 1):
     """``T`` as a dense (CHW, CHW) matrix in flattened NCHW order, so that
-    ``T @ y.reshape(-1)`` is ``masked_conv_apply(y, w_eff)`` for one
-    image (the JAX ``dense_operator``, groups=1). A test oracle and the
-    library call's operand; never on the training path."""
+    ``T @ y.reshape(-1)`` is ``masked_conv_apply(y, w_eff, groups)`` for
+    one image (the JAX ``dense_operator``). A test oracle and the library
+    call's operand; never on the training path."""
     n = c * h * width
     eye = torch.eye(n, dtype=w_eff.dtype, device=w_eff.device)
-    cols = masked_conv_apply(eye.reshape(n, c, h, width), w_eff)
+    cols = masked_conv_apply(eye.reshape(n, c, h, width), w_eff, groups)
     return cols.reshape(n, n).T
 
 

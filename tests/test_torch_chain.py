@@ -238,6 +238,8 @@ def test_port_imports_no_jax():
     assert {f"inverse_flow_tpu_torch.train.{m}" for m in (
         "config", "experiment", "memory", "metrics", "optim", "stats")} \
         <= set(mods)
+    assert {"inverse_flow_tpu_torch.layers.padded_conv",
+            "inverse_flow_tpu_torch.utils.imaging"} <= set(mods)
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"sys.exit(sorted(n for n in sys.modules if n == 'jax' or "

@@ -23,6 +23,7 @@ from inverse_flow_tpu_torch.data import imagenet as timagenet
 from inverse_flow_tpu_torch.data import loader as tloader
 from inverse_flow_tpu_torch.data import mnist as tmnist
 from inverse_flow_tpu_torch.data import synthetic as tsynthetic
+from inverse_flow_tpu_torch.distributions import GaussianPrior
 from inverse_flow_tpu_torch.layers import Flow
 from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.train.config import ExperimentConfig
@@ -135,14 +136,19 @@ def test_imagenet_load_data_matches_jax(files, tmp_path, monkeypatch):
 
 def test_entry_points_default_to_the_card():
     """build_glow, Experiment and MemoryTracker put their work on "cuda"
-    unless the caller names another device; without a card the default
-    raises and nothing moves to the CPU."""
+    unless the caller names another device, and Flow.sample on its
+    parameters' device (the card for a flow without any); without a card
+    the default raises and nothing moves to the CPU."""
     for fn in (build_glow, Experiment, MemoryTracker):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
+    for kind in ("inv_conv_no_pad", "ff"):
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_glow((1, 8, 8), step_kind=kind, num_blocks=1,
+                       block_size=1, coupling_width=4)
     with pytest.raises((AssertionError, RuntimeError)):
-        build_glow((1, 8, 8), num_blocks=1, block_size=1, coupling_width=4)
+        Flow(GaussianPrior((1, 2, 2)), []).sample(1)
     flow = Flow(None, [])
     loader = tloader.ArrayLoader(np.zeros((2, 1, 4, 4), np.float32), 2)
     with pytest.raises((AssertionError, RuntimeError)):

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from inverse_flow_tpu_torch.layers import Flow
+from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.ops import fused_chain as tfc
 from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
 
@@ -35,6 +37,10 @@ IDS = ["4x14x14-TL", "8x7x7-TL", "8x7x7-BR", "4x14x14-unit"]
 UNIT_SHAPES = [(12, 16, 16), (24, 8, 8), (48, 4, 4)]
 UNIT_IDS = ["12x16x16", "24x8x8", "48x4x4"]
 UNIT = ("TL", "TR", "BL", "BR")
+# ff_glow_mnist's FincFlowUnit inverse: the groups-4 kernel expanded to a
+# dense block-diagonal one, one TL order, at the flagship's shapes
+FF_SHAPES = [(4, 14, 14), (8, 7, 7)]
+FF_IDS = ["4x14x14", "8x7x7"]
 
 
 def _inputs(chw, n, b=3, seed=0):
@@ -188,3 +194,61 @@ def test_unit_kernel_matches_reference(cuda_device, chw):
     assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
     for d, r in zip(dws, ref_dws):
         assert (d - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+def _grouped_args(chw, b, device, seed=13):
+    """The chain's arguments for a FincFlowUnit inverse: four chunk
+    kernels of the model's init scale (normal(0, 0.05)), masked, expanded
+    into one dense kernel."""
+    rs = np.random.RandomState(seed)
+    c = chw[0]
+    x = rs.randn(b, *chw).astype(np.float32)
+    w_eff = torch.cat([apply_mask(torch.from_numpy(
+        (0.05 * rs.randn(c // 4, c // 4, 3, 3)).astype(np.float32)))
+        for _ in range(4)])
+    w = tfc.expand_grouped_kernel(w_eff, 4).to(device)
+    return tfc.chain_inputs(torch.from_numpy(x).to(device), (w,), ("TL",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [100, 1])
+@pytest.mark.parametrize("chw", FF_SHAPES, ids=FF_IDS)
+def test_grouped_kernel_matches_reference(cuda_device, chw, b):
+    """The expanded groups-4 kernel through the CUDA kernel against its
+    plain version, at the sample batch (100) and at one image."""
+    args = _grouped_args(chw, b, cuda_device)
+    before = tfc.chain_phases.launches
+    with torch.no_grad():
+        y = tfc.chain_phases(*args)
+    torch.cuda.synchronize()
+    assert tfc.chain_phases.launches == before + 1
+    ref = tfc.chain_phases_reference(*args)
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_flow_sample_kernel_matches_plain_chain(cuda_device):
+    """A reduced ff_glow_mnist model (L=2 x K=2, width 16) samples on the
+    card through the kernel, one launch per FincFlowUnit, and agrees with
+    the same model on the plain chain on the same draws, before the final
+    floor, to 1e-4 by norm."""
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    flow = build_glow((1, 28, 28), step_kind="ff", num_blocks=2,
+                      block_size=2, coupling_width=16, generator=gen,
+                      device=cuda_device)
+    x = torch.randint(0, 256, (16, 1, 28, 28), generator=gen,
+                      device=cuda_device).float()
+    flow.data_init(x, gen)
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    noise = {"base": torch.randn((8, 8, 7, 7), generator=gen,
+                                 device=cuda_device),
+             5: torch.randn((8, 2, 14, 14), generator=gen,
+                            device=cuda_device)}
+    before = tfc.chain_phases.launches
+    y = body.sample(8, noise=noise)
+    torch.cuda.synchronize()
+    assert tfc.chain_phases.launches == before + 4
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        ref = body.sample(8, noise=noise)
+    assert torch.isfinite(y).all()
+    assert ((y - ref).norm() / ref.norm()).item() <= 1e-4
