@@ -22,11 +22,17 @@ from seed 0, batch 100:
 in phases:
 
   1. device: the card's name and power limit;
-  2. build: the chain kernel from ``inverse_flow_tpu_torch/csrc``;
-  3. kernel: the kernel against its plain PyTorch version on the card at
+  2. build: the chain kernels from ``inverse_flow_tpu_torch/csrc``, each
+     kernel's registers, shared memory and spills, and the cluster
+     kernel's resident clusters at every main-path shape
+     (:func:`print_build`);
+  3. kernel: the kernel the dispatch picks (the cluster kernel at every
+     main-path shape) against its plain PyTorch version on the card at
      the flagship's shapes (and both scan directions, the padded tail and
-     a four-order chain), with its time beside the plain version's and the
-     library call's (:func:`library_chain`);
+     a four-order chain), with its time beside the streaming kernel's
+     (forced), the plain version's and the library call's
+     (:func:`library_chain`), timed in turns with the device behind the
+     host (:func:`time_launch`);
   4. backward: ``FusedChainSolve``'s dx and dW through the kernel against
      the same Function on the plain recurrence, at the kernel cases of
      phase 3; the backward's launch (BR, transposed kernel) timed against
@@ -57,8 +63,10 @@ in phases:
      ``Experiment.sample``; then 10 train steps with the registry's config
      and no launch (:func:`phase_ff`).
 
-Every phase prints one line or more; the line before the last is the
-kernel summary as JSON, the last ``{"ok": true, "device": ...}``. Any
+Every chain launch of the main paths must go to the cluster kernel
+(:func:`cluster_only`). Every phase prints one line or more; the line
+before the last is the kernel summary as JSON, the last ``{"ok": true,
+"device": ...}``. Any
 failed check exits non-zero with no result line. Without a CUDA card it
 fails at once: nothing runs on the CPU. Float32 throughout, TF32 off for
 matmuls and cuDNN.
@@ -114,10 +122,16 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, reps, torch):
-    """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events."""
+def time_ms(fn, reps, torch, ahead=False):
+    """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events.
+    ``ahead``: the device first sleeps for about ``reps`` x 50 us, so that
+    the host queues the calls before the device reaches them and the
+    events time the device's work, not the host's launch rate (a chain
+    launch of 10-20 us takes about as long to enqueue)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(reps * 100_000)     # cycles, about 1.9 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -126,9 +140,10 @@ def time_ms(fn, reps, torch):
     return start.elapsed_time(end) / reps
 
 
-def ab_ms(fns, reps, rounds, torch):
+def ab_ms(fns, reps, rounds, torch, ahead=False):
     """Median ms per call of each of ``fns`` (dict), timed in turns
-    (a, b, b, a, ...) after one warm-up call each."""
+    (a, b, b, a, ...) after one warm-up call each (``ahead``: see
+    :func:`time_ms`)."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -136,7 +151,7 @@ def ab_ms(fns, reps, rounds, torch):
     keys = list(fns)
     for r in range(rounds):
         for k in (keys if r % 2 == 0 else keys[::-1]):
-            times[k].append(time_ms(fns[k], reps, torch))
+            times[k].append(time_ms(fns[k], reps, torch, ahead))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -234,17 +249,23 @@ def chain_bound(args, torch):
 
 
 def time_launch(x, ws, orders, backward, reps, rounds, torch):
-    """One launch's function timed in turns on the same inputs: the
-    kernel, its plain version and the library call; the library result
-    checked against the kernel's. ``backward``: the backward's launch on
-    the cotangent ``x`` (complementary orders, transposed kernels).
-    Returns (times dict, :func:`chain_bound`'s triple, library max abs
-    err)."""
+    """One launch's function timed in turns on the same inputs, the device
+    running behind the host (:func:`time_ms`): the kernel the dispatch
+    picks (the cluster kernel at every shape of the main paths), the
+    streaming kernel forced, the plain version and the library call; the
+    streaming kernel checked against the plain version to ``1e-5 *
+    max(1, max|y|)`` and the library result against the kernel's.
+    ``backward``: the backward's launch on the cotangent ``x``
+    (complementary orders, transposed kernels). Returns (times dict,
+    :func:`chain_bound`'s triple, library max abs err)."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
     make = fused_chain.backward_inputs if backward else \
         fused_chain.chain_inputs
     args = make(x, ws, orders)
+    if fused_chain.chain_variant(args[0].shape[2], args[4]) != "cluster":
+        fail(f"{tuple(x.shape)} {orders} does not dispatch to the cluster "
+             f"kernel")
     library = library_chain(x, ws, orders, backward, torch)
     _, c, h, w = x.shape
     with torch.inference_mode():
@@ -255,11 +276,19 @@ def time_launch(x, ws, orders, backward, reps, rounds, torch):
             fail(f"the library call disagrees with the kernel at "
                  f"{tuple(x.shape)} {orders} (backward {backward}): "
                  f"{lib_err}")
+        ref = fused_chain.chain_phases_reference(*args)
+        stream_err = (fused_chain.chain_phases(*args, variant="streaming")
+                      - ref).abs().max().item()
+        if not stream_err <= 1e-5 * max(1.0, ref.abs().max().item()):
+            fail(f"the streaming kernel disagrees with its plain version at "
+                 f"{tuple(x.shape)} {orders}: {stream_err}")
         t = ab_ms({"kernel": lambda: fused_chain.chain_phases(*args),
+                   "streaming": lambda: fused_chain.chain_phases(
+                       *args, variant="streaming"),
                    "plain": lambda: fused_chain.chain_phases_reference(
                        *args),
                    "library": library}, reps=reps, rounds=rounds,
-                  torch=torch)
+                  torch=torch, ahead=True)
     return t, chain_bound(args, torch), lib_err
 
 
@@ -354,18 +383,32 @@ def time_rows(shapes, orders, backward, reps, rounds, label, gen, dev, card,
         x, ws = solve_operands(chw, orders, gen, dev, torch)
         t, (bound, bound_by, fma), lib_err = time_launch(
             x, ws, orders, backward, reps, rounds, torch)
-        rows.append((t["kernel"], t["plain"], t["library"], bound))
+        rows.append((t["kernel"], t["streaming"], t["plain"], t["library"],
+                     bound))
         print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
-              f"{'-'.join(orders)}{' backward launch' * backward}: kernel "
-              f"{1e3 * t['kernel']:.2f} us, plain torch "
-              f"{1e3 * t['plain']:.2f} us, library {1e3 * t['library']:.2f} "
-              f"us per call; bound {1e3 * bound:.2f} us ({bound_by}, {fma} "
-              f"multiply-adds per batch row; the kernel at "
-              f"{bound / t['kernel']:.2%} of it); library vs kernel max abs "
-              f"diff {lib_err:.3e} {card}", flush=True)
+              f"{'-'.join(orders)}{' backward launch' * backward}: "
+              f"{launch_times(t, bound, bound_by, fma)}; library vs kernel "
+              f"max abs diff {lib_err:.3e} {card}", flush=True)
+    return mean_row(rows, bound_by)
+
+
+def launch_times(t, bound, bound_by, fma):
+    """One line's worth of :func:`time_launch`'s times and the bound."""
+    return (f"cluster kernel {1e3 * t['kernel']:.2f} us, streaming kernel "
+            f"{1e3 * t['streaming']:.2f} us, plain torch "
+            f"{1e3 * t['plain']:.2f} us, library {1e3 * t['library']:.2f} "
+            f"us per call; bound {1e3 * bound:.3f} us ({bound_by}, {fma} "
+            f"multiply-adds per batch row; the cluster kernel at "
+            f"{bound / t['kernel']:.3%} of it, the streaming kernel at "
+            f"{bound / t['streaming']:.3%})")
+
+
+def mean_row(rows, bound_by):
+    """The summary entry's times: means over a path's launch shapes, which
+    it launches equally often."""
     means = [statistics.fmean(col) for col in zip(*rows)]
-    return dict(ms=means[0], plain_ms=means[1], library_ms=means[2],
-                bound_ms=means[3], bound_by=bound_by)
+    return dict(ms=means[0], streaming_ms=means[1], plain_ms=means[2],
+                library_ms=means[3], bound_ms=means[4], bound_by=bound_by)
 
 
 def device_profile(name, unit, fn, n, card, torch):
@@ -495,11 +538,24 @@ def plain_chain(fused_chain):
                              fused_chain.chain_phases_reference)
 
 
+def cluster_only(what, launches):
+    """Fails unless all ``launches`` chain launches since the last
+    ``reset_launches`` went to the cluster kernel; returns the counts by
+    variant."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    if by["cluster"] != launches or sum(by.values()) != launches:
+        fail(f"{what}: {launches} chain launches, by variant {by}: not all "
+             f"on the cluster kernel")
+    return by
+
+
 def counted_epoch(exp, first, torch):
     """``maybe_data_init(first)`` and one ``train_epoch``, with the chain
-    kernel's launch count set to 0 just before and read just after.
-    Returns (losses, mean loss, launches, backward launches, the state
-    after data init)."""
+    kernel's launch counts set to 0 just before and read just after; every
+    launch must go to the cluster kernel. Returns (losses, mean loss,
+    launches, backward launches, the state after data init)."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
     losses, bwd = [], [0]
@@ -519,12 +575,13 @@ def counted_epoch(exp, first, torch):
     with mock.patch.object(exp, "train_step", recorded_step), \
             mock.patch.object(fused_chain.FusedChainSolve, "backward",
                               staticmethod(counted_backward)):
-        fused_chain.chain_phases.launches = 0
+        fused_chain.reset_launches()
         exp.maybe_data_init(first)
         init_state = copy.deepcopy(exp.flow.state_dict())
         mean_loss = exp.train_epoch(1)
         torch.cuda.synchronize()
         launches = fused_chain.chain_phases.launches
+    cluster_only(f"{exp.cfg.name} data init + epoch", launches)
     return [float(v) for v in losses], mean_loss, launches, bwd[0], init_state
 
 
@@ -700,13 +757,14 @@ def phase_imagenet32(dev, gen, card, torch):
     flow, gen = model()
     exp = Experiment(flow, train, val, test, cfg, device=dev)
     n_params = sum(p.numel() for p in flow.parameters())
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     t0 = time.perf_counter()
     exp.maybe_data_init(first)
     logpx = exp.eval_epoch(val)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} data init + eval", launches)
     bpd = exp.to_bpd(logpx)
     print(f"{label}: {n_params} params, data init + eval over 1 batch of "
           f"{BATCH}: log p(x) {logpx:.4f}, BPD {bpd:.4f}; chain kernel "
@@ -825,19 +883,13 @@ def grouped_rows(gen, dev, card, torch):
             t, (bound, bound_by, fma), lib_err = time_launch(
                 x, ws, ("TL",), False, 100, 4, torch)
             if b == BATCH:
-                rows.append((t["kernel"], t["plain"], t["library"], bound))
+                rows.append((t["kernel"], t["streaming"], t["plain"],
+                             t["library"], bound))
             print(f"ff: kernel ({b},{','.join(map(str, chw))}) groups-4 TL: "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-                  f"{1e3 * t['kernel']:.2f} us, plain torch "
-                  f"{1e3 * t['plain']:.2f} us, library "
-                  f"{1e3 * t['library']:.2f} us per call; bound "
-                  f"{1e3 * bound:.3f} us ({bound_by}, {fma} multiply-adds "
-                  f"per batch row; the kernel at {bound / t['kernel']:.3%} "
-                  f"of it); library vs kernel max abs diff {lib_err:.3e} "
-                  f"{card}", flush=True)
-    means = [statistics.fmean(col) for col in zip(*rows)]
-    return dict(max_abs_err=max_err, ms=means[0], plain_ms=means[1],
-                library_ms=means[2], bound_ms=means[3], bound_by=bound_by)
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}); "
+                  f"{launch_times(t, bound, bound_by, fma)}; library vs "
+                  f"kernel max abs diff {lib_err:.3e} {card}", flush=True)
+    return dict(mean_row(rows, bound_by), max_abs_err=max_err)
 
 
 def sample_noise(flow, n, gen, dev, torch):
@@ -885,7 +937,7 @@ def flagship_sample(flow, gen, card, torch):
     inverse is the masked conv), finite samples, ms per 100."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     x = flow.sample(BATCH, gen)
     torch.cuda.synchronize()
     launches = fused_chain.chain_phases.launches
@@ -951,7 +1003,7 @@ def phase_ff(dev, gen, card, torch):
     n_params = sum(p.numel() for p in flow.parameters())
     first = train.data[:BATCH]
 
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     exp.maybe_data_init(first)
     bpd = exp.to_bpd(exp.eval_epoch(val))
     torch.cuda.synchronize()
@@ -964,10 +1016,11 @@ def phase_ff(dev, gen, card, torch):
 
     # ---- sampling, the main path: counts set to 0 just before ----------
     torch.cuda.reset_peak_memory_stats(dev)
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     x = flow.sample(BATCH, gen)
     torch.cuda.synchronize()
     sample_launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} Flow.sample", sample_launches)
     print(f"{label}: Flow.sample of {BATCH}: {sample_launches} chain kernel "
           f"launches (one per FincFlowUnit: 16 + 16); values "
           f"{x.min().item():.0f}..{x.max().item():.0f}", flush=True)
@@ -1031,10 +1084,11 @@ def phase_ff(dev, gen, card, torch):
     host_by_layer(flow, "inverse_with", lambda: flow.sample(BATCH, gen),
                   f"Flow.sample of {BATCH}", torch)
 
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     samples = exp.sample(1)
     torch.cuda.synchronize()
     launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} Experiment.sample", launches)
     n_one = max(5, min(cfg.n_samples, 100))
     png = os.path.join(cfg.sample_dir, "1.png")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -1072,6 +1126,29 @@ def phase_ff(dev, gen, card, torch):
           f"{calls:.0f} kernel launch calls, {sample_launches} chain "
           f"launches; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(row, launches=sample_launches)
+
+
+def print_build(dev, _build, fused_chain):
+    """Phase 2's report: each kernel's registers, shared memory and spills
+    as ``ptxas -v`` gave them; and, at every solve shape of the main paths
+    at batch 100 and 1, the cluster kernel's shared memory and how many of
+    its clusters can be resident at once against the ceil(B / 8) a launch
+    needs (one wave when they all fit)."""
+    for line in _build.build_log("chain_solve").splitlines():
+        if "Compiling entry" in line:
+            name = "cluster" if "cluster_kernel" in line else "streaming"
+        elif "registers" in line or "spill" in line:
+            print(f"build: {name} kernel: {line.strip()}", flush=True)
+    for rcw, kcw in ((392, 112), (336, 112), (384, 384)):
+        for b in (BATCH, 1):
+            active = _build.cluster_occupancy(dev.index, b, rcw, kcw)
+            need = -(-b // fused_chain.CLUSTER_ROWS)
+            print(f"build: cluster kernel at RCW={rcw} KCW={kcw} B={b}: "
+                  f"{fused_chain.cluster_smem_bytes(rcw, kcw)} bytes of "
+                  f"shared memory a CTA; {active} clusters of "
+                  f"{fused_chain.CLUSTER_SIZE} resident at once, {need} "
+                  f"needed: {'one wave' if need <= active else 'waves'}",
+                  flush=True)
 
 
 def plain_sample(flow, n, gen):
@@ -1121,6 +1198,7 @@ def main():
     _build.chain_solve_lib(dev.index)
     print(f"build: {os.path.relpath(_build.build('chain_solve'), HERE)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_build(dev, _build, fused_chain)
 
     # ---- 3. kernel vs plain --------------------------------------------
     gen = torch.Generator(dev).manual_seed(0)
@@ -1157,11 +1235,12 @@ def main():
             break
     first = next(iter(val))
 
-    fused_chain.chain_phases.launches = 0
+    fused_chain.reset_launches()
     exp.maybe_data_init(first)
     logpx = exp.eval_epoch(val)
     torch.cuda.synchronize()
     launches = fused_chain.chain_phases.launches
+    cluster_only("slice data init + eval", launches)
     bpd = exp.to_bpd(logpx)
     # data init runs every block twice, as the JAX Flow.data_init does:
     # its step-by-step init pass, then the block's forward
@@ -1221,23 +1300,28 @@ def main():
 
     print(f"smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    kernel = {"route": "cuda",
-              "source": "inverse_flow_tpu_torch/csrc/chain_solve.cu",
-              "replaces": "inverse_flow_tpu/ops/fused_chain.py:209"}
+
+    def entry(name, launches, **row):
+        # every main-path launch went to the cluster kernel (cluster_only)
+        return dict(name=name, route="cuda", variant="cluster",
+                    source="inverse_flow_tpu_torch/csrc/chain_solve.cu",
+                    replaces="inverse_flow_tpu/ops/fused_chain.py:209",
+                    launches=launches, launches_by_variant={
+                        "cluster": launches, "streaming": 0}, **row)
+
     # times and bounds: means over each path's solve shapes, which it
-    # launches equally often; launches: each path's train run (phases 7
+    # launches equally often (ms: the cluster kernel, streaming_ms: the
+    # streaming kernel forced); launches: each path's train run (phases 7
     # and 8, the counts set to 0 just before), and for the grouped launch
     # one Flow.sample of ff_glow_mnist (phase 9)
     print(json.dumps({"kernels": [
-        dict(name="chain_phases", **kernel, launches=fwd_launches,
-             max_abs_err=max_err, **fwd_times),
-        dict(name="chain_phases:backward", **kernel,
-             launches=bwd_launches, max_abs_err=bwd_err, **bwd_times),
-        dict(name="chain_phases:unit", **kernel, **unit_rows[0]),
-        dict(name="chain_phases:unit_backward", **kernel,
-             **unit_rows[1]),
-        dict(name="chain_phases:grouped", **kernel, **grouped_row)]}),
-        flush=True)
+        entry("chain_phases", fwd_launches, max_abs_err=max_err,
+              **fwd_times),
+        entry("chain_phases:backward", bwd_launches, max_abs_err=bwd_err,
+              **bwd_times),
+        entry("chain_phases:unit", **unit_rows[0]),
+        entry("chain_phases:unit_backward", **unit_rows[1]),
+        entry("chain_phases:grouped", **grouped_row)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

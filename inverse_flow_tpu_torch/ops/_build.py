@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (sm_90a) into ``build/kernels/`` at the root of the
 checkout on first use, under a name that carries a hash of the source (so
 an edited source is never served by a stale library), and loaded with
-``ctypes``. Nothing here runs at import time.
+``ctypes``. ``nvcc`` runs with ``-Xptxas -v``: each kernel's registers,
+shared memory and spills go to ``lib<name>_<hash>.log`` beside the library
+(:func:`build_log`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -47,8 +49,10 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], check=True,
-                       capture_output=True, text=True)
+        done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              check=True, capture_output=True, text=True)
+        with open(out[:-len(".so")] + ".log", "w") as f:
+            f.write(done.stderr)
         os.replace(tmp, out)
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed on {src}:\n{e.stderr}") from e
@@ -58,25 +62,48 @@ def build(name: str) -> str:
     return out
 
 
+def build_log(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built: each
+    kernel's registers, shared memory and spills."""
+    with open(build(name)[:-len(".so")] + ".log") as f:
+        return f.read()
+
+
 @functools.cache
 def _chain_solve_cdll() -> ctypes.CDLL:
     lib = ctypes.CDLL(build("chain_solve"))
     lib.chain_phases_init.argtypes = []
     lib.chain_phases_init.restype = ctypes.c_int
-    fn = lib.chain_phases_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for fn in (lib.chain_phases_f32, lib.chain_phases_cluster_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    occ = lib.chain_phases_cluster_occupancy
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def chain_solve_lib(device_index: int) -> ctypes.CDLL:
     """``csrc/chain_solve.cu``, built and loaded once per process, with the
-    kernel's shared memory limit raised once on CUDA device
+    kernels' shared memory limits raised once on CUDA device
     ``device_index``, which must be the current device."""
     lib = _chain_solve_cdll()
     err = lib.chain_phases_init()
     if err != 0:
         raise RuntimeError(f"chain_phases_init failed with CUDA error {err}")
     return lib
+
+
+def cluster_occupancy(device_index: int, b: int, rcw: int, kcw: int) -> int:
+    """How many clusters of the chain's cluster kernel can be resident at
+    once on CUDA device ``device_index`` (the current device) at this
+    shape; a launch at batch ``b`` needs ceil(b / 8)."""
+    lib = chain_solve_lib(device_index)
+    n = ctypes.c_int(0)
+    err = lib.chain_phases_cluster_occupancy(b, rcw, kcw, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"chain_phases_cluster_occupancy failed with CUDA "
+                           f"error {err}")
+    return n.value

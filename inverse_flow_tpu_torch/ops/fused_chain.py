@@ -10,9 +10,10 @@ unflipped data:
 
     y_b = x_b @ T_eff^T - carry @ G_eff^T
 
-:func:`chain_phases` runs it: the CUDA kernel ``csrc/chain_solve.cu`` on a
-CUDA tensor, and :func:`chain_phases_reference`, the same function in plain
-torch, on a CPU tensor. The operator build (:func:`_phase_matrices`) is
+:func:`chain_phases` runs it: on a CUDA tensor one of the two kernels of
+``csrc/chain_solve.cu`` (:func:`chain_variant` picks it from the block
+width), and on a CPU tensor :func:`chain_phases_reference`, the same
+function in plain torch. The operator build (:func:`_phase_matrices`) is
 plain torch on either device, one batched pass over the N orders' kernels.
 
 A grouped kernel (FincFlow's level 2, a grouped ``InvFlow``) enters the
@@ -46,9 +47,17 @@ ORDER_FLAGS = {
 # flip2 . F_o: the orientation of order o's backward solve
 _COMPLEMENT = {"TL": "BR", "TR": "BL", "BL": "TR", "BR": "TL"}
 
-# the kernel keeps a few batch rows of one block and its carry in shared
-# memory (csrc/chain_solve.cu:kMaxRcw); wider blocks need a tiled design
+# the streaming kernel keeps a few batch rows of one block and its carry in
+# shared memory (csrc/chain_solve.cu:kMaxRcw); wider blocks need a tiled
+# design
 MAX_RCW = 2048
+# the cluster kernel (csrc/chain_solve.cu: kClusterSize, kMaxCols,
+# kSmemLimit): 8 CTAs split the output columns, at most 64 each, and each
+# holds its slices of T and G and its staging rows in shared memory
+CLUSTER_SIZE = 8
+CLUSTER_ROWS = 8
+CLUSTER_MAX_COLS = 64
+SMEM_LIMIT = 232448
 
 
 def choose_block_rows_fused(h: int, cw: int, kh: int):
@@ -168,14 +177,65 @@ def chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw=0):
     return torch.stack(phases)
 
 
-def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0):
+def _round4(v):
+    return -(-v // 4) * 4
+
+
+def _pad16(v):
+    return -(-(v + 16) // 32) * 32 - 16
+
+
+def _cluster_cols(rcw):
+    """Output columns per CTA of the cluster kernel: ceil(RCW / 8) rounded
+    up to a multiple of 4."""
+    return _round4(-(-rcw // CLUSTER_SIZE))
+
+
+def cluster_smem_bytes(rcw, kcw):
+    """The cluster kernel's shared memory at block width ``rcw`` and carry
+    width ``kcw``: a 16-byte mbarrier, then T's and G's slices (one row
+    per output column of a CTA, :func:`_cluster_cols`; row strides 16
+    floats past a multiple of 32), two buffers of 8 input rows and one of
+    8 carry rows (rows padded to a multiple of 4 floats), two of the CTA's
+    8 rows of outputs, and 8 warps x 512 partial sums
+    (``csrc/chain_solve.cu:cluster_smem_floats``)."""
+    cols = _cluster_cols(rcw)
+    floats = (cols * (_pad16(rcw) + _pad16(kcw))
+              + CLUSTER_ROWS * (2 * _round4(rcw) + _round4(kcw))
+              + 2 * CLUSTER_ROWS * cols + 8 * CLUSTER_MAX_COLS * CLUSTER_ROWS)
+    return 16 + 4 * floats
+
+
+def chain_variant(rcw, kcw):
+    """Which kernel :func:`chain_phases` launches at block width ``rcw``
+    and carry width ``kcw``: ``"cluster"`` when a CTA's slices of T and G
+    fit in shared memory with its staging rows (at most 64 columns a CTA
+    and :func:`cluster_smem_bytes` within 227 KB), else ``"streaming"``.
+    Raises on a shape neither takes."""
+    if not 0 < kcw <= rcw <= MAX_RCW:
+        raise ValueError(f"chain_variant: no kernel takes rcw={rcw} "
+                         f"kcw={kcw}")
+    if (_cluster_cols(rcw) <= CLUSTER_MAX_COLS
+            and cluster_smem_bytes(rcw, kcw) <= SMEM_LIMIT):
+        return "cluster"
+    return "streaming"
+
+
+VARIANTS = ("cluster", "streaming")
+
+
+def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0, variant=None):
     """All phase outputs (N, NB, B, RCW) of the chain recurrence.
 
     ``xb`` (NB, B, RCW), ``t_all`` (N, RCW, RCW), ``g_all`` (N, RCW, KCW),
     float32; ``dirs[o]`` is True when order o flips H (scans top down);
     the last ``pad_cw`` columns of the last block are zero-padded rows.
     CPU tensors take :func:`chain_phases_reference`; CUDA tensors launch
-    the kernel, and ``chain_phases.launches`` counts the launches."""
+    the kernel that :func:`chain_variant` picks, or ``variant`` when given
+    (tests and timings force one). ``chain_phases.launches`` counts the
+    launches and ``chain_phases.launches_by_variant`` splits them."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"chain_phases: unknown variant {variant!r}")
     if xb.device.type == "cpu":
         return chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw)
     if xb.device.type != "cuda":
@@ -203,21 +263,32 @@ def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0):
             "fused_chain_solve, whose backward launches the kernel again")
     from ._build import chain_solve_lib
 
+    variant = variant or chain_variant(rcw, kcw)
     y = torch.empty((n, nb, b, rcw), dtype=torch.float32, device=xb.device)
     dirs_mask = sum(1 << o for o, flip_h in enumerate(dirs) if flip_h)
     with torch.cuda.device(xb.device):
+        lib = chain_solve_lib(xb.device.index)
+        launch = (lib.chain_phases_cluster_f32 if variant == "cluster"
+                  else lib.chain_phases_f32)
         stream = torch.cuda.current_stream().cuda_stream
-        err = chain_solve_lib(xb.device.index).chain_phases_f32(
-            xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(), y.data_ptr(),
-            n, nb, b, rcw, kcw, pad_cw, dirs_mask, stream)
+        err = launch(xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(),
+                     y.data_ptr(), n, nb, b, rcw, kcw, pad_cw, dirs_mask,
+                     stream)
     if err != 0:
-        raise RuntimeError(f"chain_phases: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"chain_phases: {variant} kernel launch failed "
+                           f"with CUDA error {err}")
     chain_phases.launches += 1
+    chain_phases.launches_by_variant[variant] += 1
     return y
 
 
-chain_phases.launches = 0
+def reset_launches():
+    """Sets :func:`chain_phases`' launch counts to 0."""
+    chain_phases.launches = 0
+    chain_phases.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()
 
 
 # ---------------------------------------------------------------------------

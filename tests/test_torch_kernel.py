@@ -6,7 +6,10 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel.py
 
 (``--noconftest``: the suite's conftest.py sets JAX up). Without a card the
-``cuda`` tests skip. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
+``cuda`` tests skip. Each kernel case runs on both CUDA kernels
+(``variant``: the cluster kernel that every model shape dispatches to, and
+the streaming kernel forced); one wide case reaches the streaming kernel
+through the dispatch. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
 float32 round-off of a solve whose outputs are of order 1-10; weight
 gradients (sums over batch and image) to 1e-4 * max|dW_ref|.
 """
@@ -41,6 +44,7 @@ UNIT = ("TL", "TR", "BL", "BR")
 # dense block-diagonal one, one TL order, at the flagship's shapes
 FF_SHAPES = [(4, 14, 14), (8, 7, 7)]
 FF_IDS = ["4x14x14", "8x7x7"]
+VARIANTS = ["cluster", "streaming"]
 
 
 def _inputs(chw, n, b=3, seed=0):
@@ -57,6 +61,25 @@ def _inputs(chw, n, b=3, seed=0):
 
 def _tol(y):
     return 1e-5 * max(1.0, float(np.abs(y).max()))
+
+
+def _forced(variant):
+    """A context in which the dispatch sends every solve to ``variant``."""
+    return mock.patch.object(tfc, "chain_variant", lambda rcw, kcw: variant)
+
+
+def _launched(variant, n, before):
+    """``chain_phases`` counted ``n`` more launches, all of ``variant``,
+    since ``before`` = (total, by variant)."""
+    total, by = before
+    assert tfc.chain_phases.launches == total + n
+    assert tfc.chain_phases.launches_by_variant == dict(
+        by, **{variant: by[variant] + n})
+
+
+def _counts():
+    return (tfc.chain_phases.launches,
+            dict(tfc.chain_phases.launches_by_variant))
 
 
 def _args(chw, orders, b, device, seed=5):
@@ -90,25 +113,30 @@ def test_chain_phases_rejects_other_devices():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("b", [100, 1])
 @pytest.mark.parametrize("chw,orders", CASES, ids=IDS)
-def test_kernel_matches_reference(cuda_device, chw, orders):
-    """The CUDA kernel against its plain version, on the card, at B=100."""
-    args = _args(chw, orders, 100, cuda_device)
-    before = tfc.chain_phases.launches
+def test_kernel_matches_reference(cuda_device, chw, orders, b, variant):
+    """The CUDA kernel against its plain version, on the card, at B=100
+    and B=1; the dispatch sends every case to the cluster kernel."""
+    args = _args(chw, orders, b, cuda_device)
+    assert tfc.chain_variant(args[0].shape[2], args[4]) == "cluster"
+    before = _counts()
     with torch.no_grad():
-        y = tfc.chain_phases(*args)
+        y = tfc.chain_phases(*args, variant=variant)
     torch.cuda.synchronize()
-    assert tfc.chain_phases.launches == before + 1
+    _launched(variant, 1, before)
     ref = tfc.chain_phases_reference(*args)
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
 
 
 @pytest.mark.cuda
-def test_kernel_ragged_batch_and_checks(cuda_device):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_ragged_batch_and_checks(cuda_device, variant):
     """A batch that is not a multiple of the kernel's batch tile, and the
     wrapper's refusals: grad, dtype, layout."""
     args = _args((8, 7, 7), ("TL", "BL"), 7, cuda_device)
-    y = tfc.chain_phases(*args)
+    y = tfc.chain_phases(*args, variant=variant)
     ref = tfc.chain_phases_reference(*args)
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
     xb, t_all, g_all, dirs, kcw, pad_cw = args
@@ -135,15 +163,18 @@ def _vjp(chw, orders, device, b=100):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("chw,orders", CASES, ids=IDS)
-def test_backward_kernel_matches_reference(cuda_device, chw, orders):
+def test_backward_kernel_matches_reference(cuda_device, chw, orders,
+                                           variant):
     """The backward through the kernel (two launches: forward and the
     backward's solve) against the same autograd Function on the plain
     recurrence, on the card, at B=100."""
-    before = tfc.chain_phases.launches
-    dx, *dws = _vjp(chw, orders, cuda_device)
+    before = _counts()
+    with _forced(variant):
+        dx, *dws = _vjp(chw, orders, cuda_device)
     torch.cuda.synchronize()
-    assert tfc.chain_phases.launches == before + 2
+    _launched(variant, 2, before)
     with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
         ref_dx, *ref_dws = _vjp(chw, orders, cuda_device)
     assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
@@ -152,17 +183,20 @@ def test_backward_kernel_matches_reference(cuda_device, chw, orders):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("chw", [(8, 2, 2), (2, 1, 5)])
-def test_kernel_single_block(cuda_device, chw):
+def test_kernel_single_block(cuda_device, chw, variant):
     """Heights with no split into two row blocks run as one block (the
     carry width capped at the block's when H < KH-1), forward and
-    backward, on the card."""
+    backward, on the card. (2, 1, 5) has RCW = 10, not a multiple of 4:
+    the cluster kernel's element-wise copies instead of its bulk ones."""
     args = _args(chw, ("TL", "BR"), 9, cuda_device)
     assert args[0].shape[0] == 1
-    y = tfc.chain_phases(*args)
+    y = tfc.chain_phases(*args, variant=variant)
     ref = tfc.chain_phases_reference(*args)
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
-    dx, *dws = _vjp(chw, ("BR",), cuda_device, b=9)
+    with _forced(variant):
+        dx, *dws = _vjp(chw, ("BR",), cuda_device, b=9)
     with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
         ref_dx, *ref_dws = _vjp(chw, ("BR",), cuda_device, b=9)
     assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
@@ -171,26 +205,29 @@ def test_kernel_single_block(cuda_device, chw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("b", [100, 1])
 @pytest.mark.parametrize("chw", UNIT_SHAPES, ids=UNIT_IDS)
-def test_unit_kernel_matches_reference(cuda_device, chw):
-    """The four-order chain at the imagenet32 shapes, B=100, on the card:
-    the forward launch, and the backward (its launch on the complementary
-    orders with transposed kernels, and the four dW) against the same
-    Function on the plain recurrence."""
-    args = _args(chw, UNIT, 100, cuda_device)
+def test_unit_kernel_matches_reference(cuda_device, chw, b, variant):
+    """The four-order chain at the imagenet32 shapes, B=100 and B=1, on
+    the card: the forward launch, and the backward (its launch on the
+    complementary orders with transposed kernels, and the four dW)
+    against the same Function on the plain recurrence."""
+    args = _args(chw, UNIT, b, cuda_device)
     assert args[0].shape[0] == chw[1] // 2             # NB, R=2
     assert args[2].shape == (4, 384, 384)              # KCW = RCW
     with torch.no_grad():
-        y = tfc.chain_phases(*args)
+        y = tfc.chain_phases(*args, variant=variant)
     ref = tfc.chain_phases_reference(*args)
     assert ref.abs().max().item() < 20      # the limit stays near 1e-4
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
-    before = tfc.chain_phases.launches
-    dx, *dws = _vjp(chw, UNIT, cuda_device)
+    before = _counts()
+    with _forced(variant):
+        dx, *dws = _vjp(chw, UNIT, cuda_device, b=b)
     torch.cuda.synchronize()
-    assert tfc.chain_phases.launches == before + 2
+    _launched(variant, 2, before)
     with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
-        ref_dx, *ref_dws = _vjp(chw, UNIT, cuda_device)
+        ref_dx, *ref_dws = _vjp(chw, UNIT, cuda_device, b=b)
     assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
     for d, r in zip(dws, ref_dws):
         assert (d - r).abs().max() <= 1e-4 * r.abs().max()
@@ -211,19 +248,45 @@ def _grouped_args(chw, b, device, seed=13):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("b", [100, 1])
 @pytest.mark.parametrize("chw", FF_SHAPES, ids=FF_IDS)
-def test_grouped_kernel_matches_reference(cuda_device, chw, b):
+def test_grouped_kernel_matches_reference(cuda_device, chw, b, variant):
     """The expanded groups-4 kernel through the CUDA kernel against its
     plain version, at the sample batch (100) and at one image."""
     args = _grouped_args(chw, b, cuda_device)
-    before = tfc.chain_phases.launches
+    before = _counts()
     with torch.no_grad():
-        y = tfc.chain_phases(*args)
+        y = tfc.chain_phases(*args, variant=variant)
     torch.cuda.synchronize()
-    assert tfc.chain_phases.launches == before + 1
+    _launched(variant, 1, before)
     ref = tfc.chain_phases_reference(*args)
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_wide_block_dispatches_to_the_streaming_kernel(cuda_device):
+    """(32, 8, 8) solves in blocks of RCW = KCW = 512, whose slices do not
+    fit the cluster kernel's shared memory: the dispatch launches the
+    streaming kernel, which agrees with the plain version, forward and
+    backward; a forced cluster launch is refused and raises."""
+    args = _args((32, 8, 8), ("TL", "BR"), 7, cuda_device)
+    assert args[0].shape[2] == args[4] == 512
+    assert tfc.chain_variant(512, 512) == "streaming"
+    before = _counts()
+    y = tfc.chain_phases(*args)
+    torch.cuda.synchronize()
+    _launched("streaming", 1, before)
+    ref = tfc.chain_phases_reference(*args)
+    assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
+    with pytest.raises(RuntimeError):
+        tfc.chain_phases(*args, variant="cluster")
+    dx, *dws = _vjp((32, 8, 8), ("TL",), cuda_device, b=7)
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        ref_dx, *ref_dws = _vjp((32, 8, 8), ("TL",), cuda_device, b=7)
+    assert (dx - ref_dx).abs().max().item() <= _tol(ref_dx.cpu().numpy())
+    for d, r in zip(dws, ref_dws):
+        assert (d - r).abs().max() <= 1e-4 * r.abs().max()
 
 
 @pytest.mark.cuda
@@ -244,10 +307,10 @@ def test_flow_sample_kernel_matches_plain_chain(cuda_device):
                                  device=cuda_device),
              5: torch.randn((8, 2, 14, 14), generator=gen,
                             device=cuda_device)}
-    before = tfc.chain_phases.launches
+    before = _counts()
     y = body.sample(8, noise=noise)
     torch.cuda.synchronize()
-    assert tfc.chain_phases.launches == before + 4
+    _launched("cluster", 4, before)
     with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
         ref = body.sample(8, noise=noise)
     assert torch.isfinite(y).all()
