@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths on three models at full width, random weights
-from seed 0, batch 100:
+Drives the port's paths on five models at full width, random weights
+from seed 0, batch 100 (104 for the patches):
 
 * the flagship ``if_glow_mnist`` (L=2 blocks x K=16 steps of
   ``InvFlowNoPad``, coupling width 512, RQ spline 5 bins): scoring
@@ -17,15 +17,20 @@ from seed 0, batch 100:
 * ``ff_glow_mnist`` (L=2 x K=16 ``FincFlowUnit``, width 512, RQ spline 5
   bins): data init, eval, sampling (``Flow.sample``,
   ``Experiment.sample``: FincFlow's level-2 inverse on the chain kernel)
-  and training (grouped convs, no chain),
+  and training (grouped convs, no chain);
+* ``real_digits_glow`` and ``real_patches_glow`` (the registry's
+  real-data Glows: L=2 x K=4 ``InvFlowUnit``, width 64, SLR) trained
+  through ``Experiment.run()`` for 40 epochs on the embedded real digits
+  and patches, then scored on their test split,
 
 in phases:
 
   1. device: the card's name and power limit;
-  2. build: the chain kernels from ``inverse_flow_tpu_torch/csrc``, each
-     kernel's registers, shared memory and spills, and the cluster
-     kernel's resident clusters at every main-path shape
-     (:func:`print_build`);
+  2. build: the chain kernels and the SLR-inverse kernel from
+     ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source, all
+     started together), each kernel's registers, shared memory and
+     spills, and the cluster kernel's resident clusters at every main-path
+     shape (:func:`print_build`);
   3. kernel: the kernel the dispatch picks (the cluster kernel at every
      main-path shape) against its plain PyTorch version on the card at
      the flagship's shapes (and both scan directions, the padded tail and
@@ -61,10 +66,21 @@ in phases:
      the same draws, round trips, ms per 100 images and per image, a
      profiled sample, host ms by layer type, peak memory) and
      ``Experiment.sample``; then 10 train steps with the registry's config
-     and no launch (:func:`phase_ff`).
+     and no launch (:func:`phase_ff`);
+ 10. SLR and real data: the SLR-inverse kernel against its plain loop at
+     every launch shape, timed beside it and its bound (:func:`check_slr`);
+     imagenet32's sampling on phase 8's model, 144 SLR-kernel launches per
+     sample, ``Flow.sample`` and ``Experiment.sample`` with the kernel and
+     the plain loop in turns (:func:`sample_imagenet32`);
+     ``real_digits_glow`` and ``real_patches_glow`` through ``run()``, held
+     against the TPU artifacts in ``results/`` (:func:`phase_real_data`);
+     a resume from a checkpoint (:func:`phase_resume`) and the CLI's smoke
+     run (:func:`phase_cli`).
 
-Every chain launch of the main paths must go to the cluster kernel
-(:func:`cluster_only`). Every phase prints one line or more; the line
+Every chain launch of the flagship, imagenet32 and ff paths must go to
+the cluster kernel (:func:`cluster_only`); the real-data runs print the
+variant of each launch shape. Every phase prints one line or more and its
+seconds; the line
 before the last is the kernel summary as JSON, the last ``{"ok": true,
 "device": ...}``. Any
 failed check exits non-zero with no result line. Without a CUDA card it
@@ -84,6 +100,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -115,6 +132,31 @@ LIBRARY_RTOL = 1e-3
 # tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the special-function unit (exp, log, reciprocal): 16 a clock per SM, 132
+# SMs, at the card's maximum SM clock of 1,980 MHz
+PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
+# the SmoothLeakyRelu inverse: its alpha in every model, its launch shapes
+# (imagenet32's three levels at B=100 and B=1, real_digits_glow's two at
+# B=100), and the special-function operations of one Newton step
+SLR_ALPHA = 0.3
+SLR_SHAPES = [(100, 12, 16, 16), (100, 24, 8, 8), (100, 48, 4, 4),
+              (1, 12, 16, 16), (1, 24, 8, 8), (1, 48, 4, 4),
+              (100, 4, 4, 4), (100, 8, 2, 2)]
+SLR_MUFU_PER_STEP = 3
+# the real-data runs: epochs (the TPU artifacts' 40), and how far the port
+# may land from the artifacts (results/real_*_bpd.jsonl): three times the
+# spread of the port's own runs at seeds 0-2 on the CPU
+# (scripts/train_real_torch.py --cpu: test BPD 4.6095-4.6318 for digits,
+# best val BPD 4.1331-4.1836 for patches), since the two packages draw
+# other init, noise and shuffles
+REAL_EPOCHS = 40
+PATCHES_EPOCHS = 40
+DIGITS_TEST_TOL = 0.07
+PATCHES_VAL_TOL = 0.15
+# epoch 3's mean loss after a resume against the run that did not stop:
+# cuDNN's backward sums in no fixed order, so the two runs part by float32
+# round-off over 28 Adam steps
+RESUME_RTOL = 1e-3
 
 
 def fail(msg):
@@ -658,7 +700,7 @@ def phase_train(dev, card, torch):
         warmup_epochs=1, gamma=0.96170, scheduler_name="ExponentialLR",
         grad_clip_norm=None, weight_clamp=0.01, modified_grad=True,
         add_recon_grad=True, sym_recon_grad=True, recon_loss_weight=0.0,
-        sample_true_inv=True, eval_train=True,
+        sample_true_inv=True, eval_train=True, plot_recon=False,
         metrics_path=os.path.join(HERE, "chiprun_out", "train_metrics.jsonl"),
         seed=0)
     with warnings.catch_warnings(record=True):   # phase 5 printed it
@@ -694,7 +736,7 @@ def phase_train(dev, card, torch):
 
     flow.load_state_dict(init_state)
     x = check_grads("train", flow, first, gen, dev, torch)
-    step = time_steps("train", exp, x, 2, 6, card, torch)
+    step = time_steps("train", exp, x, 2, 4, card, torch)
     device_profile("train", "step", step, 2, card, torch)
     return launches - bwd, bwd
 
@@ -741,7 +783,7 @@ def phase_imagenet32(dev, gen, card, torch):
     cfg = ExperimentConfig(
         name="imagenet32", lr=1e-5, batch_size=BATCH, warmup_epochs=0,
         scheduler_name="None", weight_clamp=None, add_recon_grad=False,
-        max_eval_ex=BATCH, metrics_path=os.path.join(
+        max_eval_ex=BATCH, plot_recon=False, metrics_path=os.path.join(
             HERE, "chiprun_out", "imagenet32_metrics.jsonl"), seed=0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -802,9 +844,9 @@ def phase_imagenet32(dev, gen, card, torch):
 
     with torch.inference_mode():
         t = ab_ms({"kernel": eval_batch, "plain": eval_batch_plain},
-                  reps=1, rounds=4, torch=torch)
+                  reps=1, rounds=2, torch=torch)
     print(f"{label}: eval {t['kernel']:.3f} ms/batch of {BATCH} (plain "
-          f"chain {t['plain']:.3f} ms/batch), median of 4 turns {card}",
+          f"chain {t['plain']:.3f} ms/batch), median of 2 turns {card}",
           flush=True)
     del exp, flow, body, z, z_ref
     torch.cuda.empty_cache()
@@ -833,10 +875,10 @@ def phase_imagenet32(dev, gen, card, torch):
 
     flow.load_state_dict(init_state)
     x = check_grads(label, flow, first, gen, dev, torch)
-    step = time_steps(label, exp, x, 1, 4, card, torch)
+    step = time_steps(label, exp, x, 1, 2, card, torch)
     device_profile(label, "step", step, 1, card, torch)
     return [dict(r, launches=n) for r, n in zip(rows,
-                                                 (launches - bwd, bwd))]
+                                                 (launches - bwd, bwd))], exp
 
 
 def grouped_operands(chw, b, gen, dev, torch):
@@ -992,7 +1034,8 @@ def phase_ff(dev, gen, card, torch):
         name="2L-16K FF Glow MNIST", lr=1e-5, batch_size=BATCH,
         modified_grad=True, add_recon_grad=True, sym_recon_grad=True,
         recon_loss_weight=10.0, weight_clamp=0.01, scheduler_name="None",
-        max_eval_ex=BATCH, sample_dir=os.path.join(out, "samples_ff"),
+        max_eval_ex=BATCH, plot_recon=False,
+        sample_dir=os.path.join(out, "samples_ff"),
         metrics_path=os.path.join(out, "ff_metrics.jsonl"), seed=0)
     with warnings.catch_warnings(record=True):   # phase 5 printed it
         warnings.simplefilter("always")
@@ -1128,6 +1171,447 @@ def phase_ff(dev, gen, card, torch):
     return dict(row, launches=sample_launches)
 
 
+def slr_bound(n):
+    """(bound_ms, bound_by) of one SmoothLeakyRelu inverse on ``n``
+    elements: the larger of its bytes (y read, x written: 8 a element) at
+    the HBM rate and its special-function operations (``SLR_MUFU_PER_STEP``
+    a Newton step, 100 steps an element) at the SFU rate."""
+    from inverse_flow_tpu_torch.ops.activations import NEWTON_ITERS
+
+    bytes_ms = 8 * n / PEAK_BYTES_PER_S * 1e3
+    ops_ms = SLR_MUFU_PER_STEP * NEWTON_ITERS * n / PEAK_MUFU_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def slr_inputs(shape, gen, dev, torch):
+    """y uniform in [-40, 40], both ends included."""
+    y = 40.0 * (2 * torch.rand(shape, generator=gen, device=dev) - 1)
+    y.view(-1)[:2] = torch.tensor([40.0, -40.0], device=dev)
+    return y
+
+
+def check_slr(gen, dev, card, torch):
+    """The SLR-inverse kernel against its plain loop at every launch shape
+    of the main paths (``SLR_SHAPES``), |y| up to 40, within ``1e-5 *
+    max(1, max|y|)``; timed in turns with the device behind the host (as
+    :func:`time_launch`) beside its bound (:func:`slr_bound`); no single
+    PyTorch call computes the function, so there is no library time. Then
+    alpha 0.005, where the f' floor of 1e-2 binds (at the models' alpha
+    0.3 it never does: f' >= alpha), within ``1e-5 * max(1, max|x|)``, x
+    being 200 times y there. Returns the summary entry's numbers, its
+    times means over imagenet32's three shapes at B=100."""
+    from inverse_flow_tpu_torch.ops import activations as act
+
+    rows, max_err = [], 0.0
+    for shape in SLR_SHAPES:
+        y = slr_inputs(shape, gen, dev, torch)
+        with torch.inference_mode():
+            x = act.slr_inverse(y, SLR_ALPHA)
+            ref = act.slr_inverse_reference(y, SLR_ALPHA)
+            torch.cuda.synchronize()
+            err = (x - ref).abs().max().item()
+            lim = 1e-5 * max(1.0, y.abs().max().item())
+            res = (act.slr(x, SLR_ALPHA) - y).abs().max().item()
+            t = ab_ms({"kernel": lambda: act.slr_inverse(y, SLR_ALPHA),
+                       "plain": lambda: act.slr_inverse_reference(
+                           y, SLR_ALPHA)}, reps=10, rounds=4, torch=torch,
+                      ahead=True)
+        bound, bound_by = slr_bound(y.numel())
+        print(f"slr: {shape}: kernel {1e3 * t['kernel']:.2f} us, plain loop "
+              f"{1e3 * t['plain']:.2f} us per call "
+              f"({t['plain'] / t['kernel']:.0f}x); "
+              f"bound {1e3 * bound:.3f} us ({bound_by}; the kernel at "
+              f"{bound / t['kernel']:.2%} of it); max abs err vs plain "
+              f"{err:.3e} (limit {lim:.1e}), |slr(x) - y| {res:.3e} {card}",
+              flush=True)
+        if not err <= lim:
+            fail(f"the SLR-inverse kernel disagrees with its plain loop at "
+                 f"{shape}: {err}")
+        max_err = max(max_err, err)
+        if shape in SLR_SHAPES[:3]:
+            rows.append((t["kernel"], t["plain"], bound))
+    y = slr_inputs((BATCH, 12, 16, 16), gen, dev, torch)
+    with torch.inference_mode():
+        x = act.slr_inverse(y, 0.005)
+        ref = act.slr_inverse_reference(y, 0.005)
+        err = (x - ref).abs().max().item()
+        lim = 1e-5 * max(1.0, ref.abs().max().item())
+        floored = (act.slr_prime(ref, 0.005) < act.FPRIME_FLOOR).float()
+    print(f"slr: alpha 0.005 at {tuple(y.shape)}: f' floored at "
+          f"{floored.mean().item():.1%} of the elements; max|x| "
+          f"{ref.abs().max().item():.1f}; max abs err vs plain {err:.3e} "
+          f"(limit {lim:.1e})", flush=True)
+    if not (err <= lim and floored.any()):
+        fail("the SLR-inverse kernel disagrees with its plain loop where "
+             "the floor binds")
+    ms, plain_ms, bound_ms = (statistics.fmean(c) for c in zip(*rows))
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations", library_ms=None)
+
+
+def plain_slr():
+    """A context in which every SmoothLeakyRelu inverse runs the plain
+    loop."""
+    from inverse_flow_tpu_torch.layers import activations
+    from inverse_flow_tpu_torch.ops.activations import slr_inverse_reference
+
+    return mock.patch.object(activations, "slr_inverse",
+                             slr_inverse_reference)
+
+
+def block_growth(flow, gen, dev, torch):
+    """The first block in sampling order (imagenet32's level 3: 48 steps)
+    inverted step by step from one base draw of 8, once through the SLR
+    kernel and once through the plain loop: max|z| after each step, and
+    the two paths' relative difference by norm after each step. Returns
+    both lists."""
+    from inverse_flow_tpu_torch.layers import RepeatedBlock
+
+    block = [l for l in flow.layers if isinstance(l, RepeatedBlock)][-1]
+    z = torch.randn((8,) + tuple(flow.base_distribution.size),
+                    generator=gen, device=dev)
+    z_ref, mags, rels = z, [], []
+    with torch.inference_mode():
+        for k in reversed(range(block.n_repeats)):
+            for layer, pk in reversed(list(zip(block.steps,
+                                               block._step_params(k)))):
+                z = layer.inverse_with(pk, z)
+                with plain_slr():
+                    z_ref = layer.inverse_with(pk, z_ref)
+            mags.append(z.abs().max().item())
+            rels.append(((z - z_ref).norm() / z_ref.norm()).item())
+    return mags, rels
+
+
+def sample_imagenet32(exp, gen, card, torch):
+    """imagenet32's sampling direction on phase 8's model: one
+    ``Flow.sample`` of 100 with the launch counts set to 0 just before (144
+    SLR-kernel launches, one per SmoothLeakyRelu, and no chain launch: the
+    unit's inverse is its masked convs). At random init the sample
+    overflows float32: an SLR inverse maps a large negative y to y / alpha,
+    3.33 times farther out, and nothing of the untrained steps pulls it
+    back, so max|z| grows several times a step and passes float32's
+    3.4e38 well before step 144; the same arithmetic in any
+    implementation. So the phase prints that growth, step by step through
+    the first block, holds the kernel against the plain loop on the same
+    draw after each of the first 6 steps (still finite) to
+    ``SAMPLE_RTOL`` by norm, checks one SLR round trip,
+    and leaves finite samples to the trained real-data models
+    (:func:`real_data_phase`). Then ``Flow.sample`` of 100 and of 1 and
+    ``Experiment.sample`` (``n_samples`` 8 with ``log_timing``: 8 timed
+    one-image samples after one warm-up, then 8 images) with the kernel
+    and with the plain loop (``Experiment.sample`` once each way: the plain
+    loop takes half a minute), and one profiled ``Flow.sample`` of 1 each
+    way. Returns the SLR kernel's launches per sample."""
+    from inverse_flow_tpu_torch.layers import SmoothLeakyRelu
+    from inverse_flow_tpu_torch.ops import activations as act
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    label, flow, dev = "sample_imagenet32", exp.flow, exp.device
+    fused_chain.reset_launches()
+    act.slr_inverse.launches = 0
+    x = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    slr_launches = act.slr_inverse.launches
+    chain = fused_chain.chain_phases.launches
+    print(f"{label}: Flow.sample of {BATCH}: {slr_launches} SLR-kernel "
+          f"launches, {chain} chain launches; shape {tuple(x.shape)}, "
+          f"finite values {torch.isfinite(x).float().mean().item():.1%}",
+          flush=True)
+    if slr_launches != 144 or chain != 0:
+        fail(f"expected 144 SLR-kernel launches and no chain launch per "
+             f"imagenet32 sample, got {slr_launches} and {chain}")
+    if x.shape != (BATCH, 3, 32, 32):
+        fail("imagenet32 samples have the wrong shape")
+
+    mags, rels = block_growth(flow, gen, dev, torch)
+    finite = [m for m in mags if math.isfinite(m)]
+    print(f"{label}: max|z| after each step of the first block in sampling "
+          f"order: {', '.join(f'{m:.3g}' for m in mags[:12])}, ...; "
+          f"finite for {len(finite)} of {len(mags)} steps, x"
+          f"{(finite[-1] / finite[0]) ** (1 / max(1, len(finite) - 1)):.3g} "
+          f"a step; SLR kernel vs plain loop on the same draw, "
+          f"|z - z_plain| / |z_plain| after steps 1-6: "
+          f"{', '.join(f'{r:.2e}' for r in rels[:6])} (tol "
+          f"{SAMPLE_RTOL:.0e})", flush=True)
+    if not (len(finite) >= 6 and max(rels[:6]) <= SAMPLE_RTOL):
+        fail("imagenet32's block inverse through the SLR kernel disagrees "
+             "with the plain loop")
+
+    layer = SmoothLeakyRelu(SLR_ALPHA)
+    u = 3 * torch.randn((BATCH, 12, 16, 16), generator=gen, device=dev)
+    with torch.inference_mode():
+        rel = ((layer.inverse(layer(u)[0]) - u).norm() / u.norm()).item()
+    print(f"{label}: SLR round trip |inverse(forward(x)) - x| / |x| "
+          f"{rel:.3e} at {tuple(u.shape)} (tol {SAMPLE_RTOL:.0e})",
+          flush=True)
+    if not rel <= SAMPLE_RTOL:
+        fail("the SLR inverse does not undo its forward")
+
+    def plain_sample(n):
+        with plain_slr():
+            return flow.sample(n, gen)
+
+    t = {n: ab_ms({"kernel": lambda n=n: flow.sample(n, gen),
+                   "plain": lambda n=n: plain_sample(n)},
+                  reps=1, rounds=2, torch=torch) for n in (BATCH, 1)}
+    print(f"{label}: Flow.sample {t[BATCH]['kernel']:.3f} ms per {BATCH} "
+          f"images (plain loop {t[BATCH]['plain']:.3f}), {t[1]['kernel']:.3f} "
+          f"ms per image at n=1 (plain loop {t[1]['plain']:.3f}: "
+          f"{t[1]['plain'] / t[1]['kernel']:.1f}x), CUDA events, medians of "
+          f"2 turns {card}", flush=True)
+    device_profile(label, "Flow.sample of 1", lambda: flow.sample(1, gen),
+                   1, card, torch)
+    device_profile(f"{label}_plain", "Flow.sample of 1",
+                   lambda: plain_sample(1), 1, card, torch)
+
+    exp.cfg = exp.cfg.replace(n_samples=8, log_timing=True,
+                              save_images=False)
+    runs = {"kernel": [], "plain": []}
+    for i, mode in enumerate(("kernel", "plain")):
+        exp.sample_time = type(exp.sample_time)()
+        act.slr_inverse.launches = 0
+        with plain_slr() if mode == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples = exp.sample(i + 1)
+            torch.cuda.synchronize()
+        runs[mode].append((exp.sample_time.mean, exp.sample_time.std,
+                           1e3 * (time.perf_counter() - t0),
+                           act.slr_inverse.launches))
+        if samples.shape != (8, 3, 32, 32):
+            fail(f"Experiment.sample ({mode}) gave {tuple(samples.shape)}")
+    for mode, ((mean, std, whole, launches),) in runs.items():
+        print(f"{label}: Experiment.sample ({mode}): Sample Time Mean "
+              f"{mean:.3f} ms, Std {std:.3f} ms (the middle 6 of 8 "
+              f"one-image samples); the whole call {whole:.1f} ms; "
+              f"SLR-kernel launches {launches} {card}", flush=True)
+    if runs["kernel"][0][3] != 144 * 10 or runs["plain"][0][3] != 0:
+        fail(f"Experiment.sample: {runs['kernel'][0][3]} SLR-kernel "
+             f"launches (expected 1440), {runs['plain'][0][3]} on the "
+             f"plain loop")
+    return slr_launches
+
+
+def artifact(name):
+    """The TPU artifact's rows of a real-data run (results/<name>.jsonl):
+    per-epoch rows, and the final row."""
+    with open(os.path.join(HERE, "results", f"{name}.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return rows[:-1], rows[-1]
+
+
+def real_data_phase(name, epochs, dev, card, torch):
+    """``name`` (``real_digits_glow`` or ``real_patches_glow``) through
+    ``Experiment.run()`` for ``epochs`` epochs with the real-data script's
+    overrides, then the test split (:mod:`experiments.real_data`): val BPD
+    per epoch, seconds per epoch and ms per train step (host clock, synced
+    around each ``train_epoch``), chain launches by variant with each
+    launch shape's variant, SLR-kernel launches (the samples of epochs 1-4
+    and 10), the peak memory of any epoch; then the trained model's
+    ``Flow.sample`` of 100 (finite, and the SLR kernel against the plain
+    loop on the same draws) and two more train steps profiled. Fails
+    unless every BPD is finite and the last val BPD is at least 1.0 below
+    the first. Returns (rows, final)."""
+    from inverse_flow_tpu_torch.experiments.real_data import (
+        real_data_experiment, run_real_data)
+    from inverse_flow_tpu_torch.layers import Flow
+    from inverse_flow_tpu_torch.ops import activations as act
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    out = os.path.join(HERE, "chiprun_out", "real_data")
+    exp = real_data_experiment(name, epochs, dev, seed=0, out_dir=out)
+    exp.logger.verbose = False
+    steps = len(exp.train_loader)
+    epoch_s, shapes = [], set()
+    train_epoch, variant_of = exp.train_epoch, fused_chain.chain_variant
+
+    def timed_epoch(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_epoch(e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return loss
+
+    def recorded_variant(rcw, kcw):
+        shapes.add((rcw, kcw))
+        return variant_of(rcw, kcw)
+
+    fused_chain.reset_launches()
+    act.slr_inverse.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(exp, "train_epoch", timed_epoch), \
+            mock.patch.object(fused_chain, "chain_variant", recorded_variant):
+        rows, final = run_real_data(exp)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    slr = act.slr_inverse.launches
+    with open(exp.cfg.metrics_path) as f:
+        peaks = [r["value"] for r in map(json.loads, f)
+                 if r["name"] == "Memory peak_mb"]
+    bpds = [r["val_bpd"] for r in rows]
+    n_params = sum(p.numel() for p in exp.flow.parameters())
+    print(f"{name}: {exp.cfg.name}, {n_params} params, {epochs} epochs of "
+          f"{steps} steps of {exp.cfg.batch_size} through run(): val BPD by "
+          f"epoch "
+          f"{', '.join(f'{b:.4f}' for b in bpds)}", flush=True)
+    print(f"{name}: final test BPD {final['test_bpd']:.4f}, first / best / "
+          f"last val BPD {final['first_val_bpd']:.4f} / "
+          f"{final['best_val_bpd']:.4f} / {final['last_val_bpd']:.4f}; "
+          f"train losses {rows[0]['train_loss']:.3f} -> "
+          f"{rows[-1]['train_loss']:.3f}", flush=True)
+    print(f"{name}: {statistics.median(epoch_s):.3f} s per train epoch "
+          f"(median; first {epoch_s[0]:.3f} with data init), "
+          f"{1e3 * statistics.median(epoch_s) / steps:.3f} ms per train "
+          f"step, host clock synced around train_epoch; the run "
+          f"{total_s:.1f} s with eval, test and samples; peak memory "
+          f"{max(peaks) / 1024:.3f} GB {card}", flush=True)
+    n_samples = sum(1 for e in range(1, epochs + 1) if e < 5 or e == 10)
+    print(f"{name}: chain launches by variant {by}; SLR-kernel launches "
+          f"{slr} (8 a sample x {n_samples} samples)", flush=True)
+    for rcw, kcw in sorted(shapes):
+        v = variant_of(rcw, kcw)
+        why = "" if v == "cluster" else (
+            f": {fused_chain._cluster_cols(rcw)} columns a CTA (at most "
+            f"{fused_chain.CLUSTER_MAX_COLS}), "
+            f"{fused_chain.cluster_smem_bytes(rcw, kcw)} bytes of shared "
+            f"memory (at most {fused_chain.SMEM_LIMIT})")
+        print(f"{name}: launch shape RCW={rcw} KCW={kcw} -> {v}{why}",
+              flush=True)
+    gen, dev = exp.generator, exp.device
+    x = exp.flow.sample(BATCH, gen)
+    body = Flow(exp.flow.base_distribution, exp.flow.layers[1:])
+    noise = sample_noise(exp.flow, BATCH, gen, dev, torch)
+    y = body.sample(BATCH, noise=noise)
+    with plain_slr():
+        y_ref = body.sample(BATCH, noise=noise)
+    rel = ((y - y_ref).norm() / y_ref.norm()).item()
+    print(f"{name}: the trained model's Flow.sample of {BATCH}: values "
+          f"{x.min().item():.0f}..{x.max().item():.0f}, all finite "
+          f"{bool(torch.isfinite(x).all())}; before the floor, SLR kernel vs "
+          f"plain loop on the same draws |y - y_plain| / |y_plain| "
+          f"{rel:.3e} (tol {SAMPLE_RTOL:.0e})", flush=True)
+    if not (torch.isfinite(x).all() and torch.isfinite(y).all()
+            and rel <= SAMPLE_RTOL):
+        fail(f"{name}: the trained model's samples are not finite or "
+             f"disagree with the plain loop")
+    xb = exp._prep_batch(next(iter(exp.train_loader)))
+    device_profile(name, "step", lambda: exp.train_step(xb), 2, card, torch)
+    if not all(map(math.isfinite, bpds + [final["test_bpd"]])):
+        fail(f"{name}: a BPD is not finite")
+    if not bpds[-1] <= bpds[0] - 1.0:
+        fail(f"{name}: val BPD fell from {bpds[0]} to only {bpds[-1]}")
+    if slr != 8 * n_samples or sum(by.values()) == 0:
+        fail(f"{name}: {slr} SLR-kernel launches (expected "
+             f"{8 * n_samples}), chain launches {by}")
+    return rows, final
+
+
+def phase_real_data(dev, card, torch):
+    """Phase 10's real-data part: ``real_digits_glow`` for 40 epochs, its
+    test BPD against the TPU artifact's to ``DIGITS_TEST_TOL``;
+    ``real_patches_glow`` for ``PATCHES_EPOCHS``, its best val BPD against
+    the artifact's (at 40 epochs; at fewer, its val BPD at that epoch
+    against the artifact's line for it) to ``PATCHES_VAL_TOL``. Returns
+    the digits run's rows."""
+    digits_rows, final = real_data_phase("real_digits_glow", REAL_EPOCHS,
+                                         dev, card, torch)
+    ref = artifact("real_digits_bpd")[1]["test_bpd"]
+    print(f"real_digits_glow: test BPD {final['test_bpd']:.4f} against the "
+          f"TPU artifact's {ref} (results/real_digits_bpd.jsonl): "
+          f"{final['test_bpd'] - ref:+.4f} (tol {DIGITS_TEST_TOL})",
+          flush=True)
+    if not abs(final["test_bpd"] - ref) <= DIGITS_TEST_TOL:
+        fail("real_digits_glow's test BPD is off the artifact's")
+
+    rows, final = real_data_phase("real_patches_glow", PATCHES_EPOCHS, dev,
+                                  card, torch)
+    ref_rows, ref_final = artifact("real_patches_bpd")
+    if PATCHES_EPOCHS == 40:
+        what, ours, ref = "best val BPD", final["best_val_bpd"], \
+            ref_final["best_val_bpd"]
+    else:
+        what = f"val BPD at epoch {PATCHES_EPOCHS} (the run is cut short)"
+        ours, ref = rows[-1]["val_bpd"], \
+            ref_rows[PATCHES_EPOCHS - 1]["val_bpd"]
+    print(f"real_patches_glow: {what} {ours:.4f} against the TPU "
+          f"artifact's {ref} (results/real_patches_bpd.jsonl): "
+          f"{ours - ref:+.4f} (tol {PATCHES_VAL_TOL})", flush=True)
+    if not abs(ours - ref) <= PATCHES_VAL_TOL:
+        fail(f"real_patches_glow's {what} is off the artifact's")
+    return digits_rows
+
+
+def phase_resume(dev, whole_rows, card, torch):
+    """A digits run saved after epoch 2 and loaded into a fresh Experiment
+    with the generator's and the train loader's states copied over: epoch
+    3's mean loss against that of the 40-epoch run, which did not stop
+    (``whole_rows``; its first epochs do the same work, since the epoch
+    count changes nothing before the last), to ``RESUME_RTOL``; data init
+    does not run again."""
+    from inverse_flow_tpu_torch.experiments.real_data import (
+        real_data_experiment)
+
+    out = os.path.join(HERE, "chiprun_out", "real_data")
+
+    def make(epochs, tag):
+        exp = real_data_experiment("real_digits_glow", epochs, dev, 0, out,
+                                   tag)
+        exp.logger.verbose = False
+        return exp
+
+    def losses(exp):
+        exp.logger.close()
+        with open(exp.cfg.metrics_path) as f:
+            return [r["value"] for r in map(json.loads, f)
+                    if r["name"] == "Train Avg Loss"]
+
+    first = make(2, "_first")
+    first.run()
+    first.save()
+    resumed = make(3, "_resumed")
+    resumed.load(first.checkpoint_path)
+    resumed.generator.set_state(first.generator.get_state())
+    resumed.train_loader._rng = copy.deepcopy(first.train_loader._rng)
+    resumed.flow.data_init = None                 # must not run again
+    resumed.run()
+    whole = [r["train_loss"] for r in whole_rows[:3]]
+    a, b = losses(resumed)[-1], whole[2]
+    rel = abs(a - b) / abs(b)
+    print(f"resume: real_digits_glow saved after epoch 2 and resumed: epoch "
+          f"3 mean loss {a:.6f} against {b:.6f} without a stop (rel "
+          f"{rel:.3e}, tol {RESUME_RTOL:.0e}); epochs 1-2 "
+          f"{', '.join(f'{v:.6f}' for v in losses(first))} against "
+          f"{', '.join(f'{v:.6f}' for v in whole[:2])} {card}", flush=True)
+    if not rel <= RESUME_RTOL or resumed.summary["Epoch"] != 3:
+        fail("the resumed run does not continue the run")
+
+
+def phase_cli(card):
+    """``cli.main(["--name", "real_digits_glow", "--smoke"])`` on the card,
+    in ``chiprun_out/cli``: it must finish and print its summary JSON
+    last."""
+    import io
+
+    from inverse_flow_tpu_torch import cli
+
+    out = os.path.join(HERE, "chiprun_out", "cli")
+    os.makedirs(out, exist_ok=True)
+    buf = io.StringIO()
+    with contextlib.chdir(out), contextlib.redirect_stdout(buf):
+        rc = cli.main(["--name", "real_digits_glow", "--smoke"])
+    last = buf.getvalue().strip().splitlines()[-1]
+    summary = json.loads(last)
+    print(f"cli: --name real_digits_glow --smoke: exit {rc}, summary {last} "
+          f"{card}", flush=True)
+    if rc != 0 or summary.get("Epoch") != 2 or not math.isfinite(
+            summary.get("Test BPD", float("nan"))):
+        fail("the CLI's smoke run did not finish")
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -1139,6 +1623,9 @@ def print_build(dev, _build, fused_chain):
             name = "cluster" if "cluster_kernel" in line else "streaming"
         elif "registers" in line or "spill" in line:
             print(f"build: {name} kernel: {line.strip()}", flush=True)
+    for line in _build.build_log("slr_inverse").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"build: slr_inverse kernel: {line.strip()}", flush=True)
     for rcw, kcw in ((392, 112), (336, 112), (384, 384)):
         for b in (BATCH, 1):
             active = _build.cluster_occupancy(dev.index, b, rcw, kcw)
@@ -1193,12 +1680,25 @@ def main():
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    # ---- 2. build -------------------------------------------------------
+    lap = [time.perf_counter()]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"smoke: phase {n} in {now - lap[0]:.1f} s", flush=True)
+        lap[0] = now
+
+    phase_done(1)
+
+    # ---- 2. build: one nvcc for each source, all started together -------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:
+        libs = list(pool.map(_build.build, ("chain_solve", "slr_inverse")))
     _build.chain_solve_lib(dev.index)
-    print(f"build: {os.path.relpath(_build.build('chain_solve'), HERE)} "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    _build.slr_inverse_lib()
+    print(f"build: {', '.join(os.path.relpath(p, HERE) for p in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_build(dev, _build, fused_chain)
+    phase_done(2)
 
     # ---- 3. kernel vs plain --------------------------------------------
     gen = torch.Generator(dev).manual_seed(0)
@@ -1208,10 +1708,12 @@ def main():
                           card=card, **on)
 
     # ---- 4. backward vs plain ------------------------------------------
+    phase_done(3)
     bwd_err = check_backward(KERNEL_CASES, "backward", **on)
     # the backward's launch of a TL solve: BR, transposed kernel
     bwd_times = time_rows(FLAGSHIP_SHAPES, ("TL",), True, 200, 6,
                           "backward", card=card, **on)
+    phase_done(4)
 
     # ---- 5. the slice ---------------------------------------------------
     flow = build_glow((1, 28, 28), step_kind="inv_conv_no_pad", num_blocks=2,
@@ -1284,21 +1786,36 @@ def main():
                   reps=3, rounds=8, torch=torch)
     print(f"slice: eval {t['kernel']:.3f} ms/batch of {BATCH} (plain chain "
           f"{t['plain']:.3f} ms/batch) {card}", flush=True)
+    phase_done(5)
 
     # ---- 6. profile -----------------------------------------------------
     profile_eval(flow, x, exp.generator, card, torch)
     flagship_sample(flow, gen, card, torch)
+    phase_done(6)
 
     # ---- 7. train -------------------------------------------------------
     fwd_launches, bwd_launches = phase_train(dev, card, torch)
+    phase_done(7)
 
     # ---- 8. imagenet32 --------------------------------------------------
-    unit_rows = phase_imagenet32(dev, gen, card, torch)
+    unit_rows, unit_exp = phase_imagenet32(dev, gen, card, torch)
+    phase_done(8)
 
     # ---- 9. ff ----------------------------------------------------------
     grouped_row = phase_ff(dev, gen, card, torch)
+    phase_done(9)
 
-    print(f"smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 10. SLR inverse, imagenet32 sampling, real data, resume, CLI ---
+    slr_row = check_slr(gen, dev, card, torch)
+    slr_launches = sample_imagenet32(unit_exp, gen, card, torch)
+    del unit_exp
+    torch.cuda.empty_cache()
+    digits_rows = phase_real_data(dev, card, torch)
+    phase_resume(dev, digits_rows, card, torch)
+    phase_cli(card)
+    phase_done(10)
+
+    print(f"smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     def entry(name, launches, **row):
@@ -1321,7 +1838,13 @@ def main():
               **bwd_times),
         entry("chain_phases:unit", **unit_rows[0]),
         entry("chain_phases:unit_backward", **unit_rows[1]),
-        entry("chain_phases:grouped", **grouped_row)]}), flush=True)
+        entry("chain_phases:grouped", **grouped_row),
+        # launches: one imagenet32 Flow.sample of 100 (phase 10, the
+        # counts set to 0 just before)
+        dict(name="slr_inverse", route="cuda",
+             source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
+             replaces="inverse_flow_tpu/layers/activations.py:38",
+             launches=slr_launches, **slr_row)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

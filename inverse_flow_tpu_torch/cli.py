@@ -1,0 +1,113 @@
+"""Command-line entry point: ``python -m inverse_flow_tpu_torch.cli --name
+<exp>`` (or ``ift-torch``).
+
+The JAX CLI's flags and semantics (``inverse_flow_tpu/cli.py``) for the
+experiments the port builds: ``--list``, ``--name``, ``--smoke`` (a
+miniature model of the experiment's family on synthetic data, 2 epochs),
+``--epochs``, ``--batch-size``, ``--profile-dir`` (a ``torch.profiler``
+trace of epoch 1) and ``--resume``. The run is on the CUDA card, and
+raises without one, unless ``--cpu`` is given. The summary is printed as
+JSON on the last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("inverse_flow_tpu_torch")
+    parser.add_argument("--name", type=str, required=False,
+                        help="experiment name (see --list)")
+    parser.add_argument("--list", action="store_true")
+    parser.add_argument("--smoke", action="store_true",
+                        help="tiny config + synthetic data, 2 epochs")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU instead of the CUDA card")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of epoch 1")
+    parser.add_argument("--resume", nargs="?", const="", default=None,
+                        metavar="CKPT",
+                        help="resume from a checkpoint (default: the "
+                             "experiment's own checkpoint path)")
+    args = parser.parse_args(argv)
+
+    from .experiments import EXPERIMENTS, get_experiment
+
+    if args.list or not args.name:
+        print("available experiments:")
+        for name in sorted(EXPERIMENTS):
+            print(f"  {name}")
+        return 0
+
+    import torch
+
+    spec = get_experiment(args.name)
+    cfg = spec.config
+    device = "cpu" if args.cpu else "cuda"
+
+    overrides = {}
+    if args.profile_dir:
+        overrides["profile_dir"] = args.profile_dir
+    if args.smoke:
+        overrides.update(epochs=2, batch_size=16, n_samples=4,
+                         log_interval=5, sample_epochs=1, eval_epochs=1,
+                         save_images=False)
+    # explicit flags beat smoke defaults
+    if args.epochs is not None:
+        overrides["epochs"] = args.epochs
+    if args.batch_size is not None:
+        overrides["batch_size"] = args.batch_size
+    cfg = cfg.replace(**overrides)
+
+    generator = torch.Generator(device).manual_seed(cfg.seed)
+    if args.smoke:
+        flow = _smoke_model(spec, device, generator)
+        from .data import synthetic
+        loaders = synthetic.load_data(_smoke_data_size(spec), n_train=64,
+                                      n_val=32, n_test=32,
+                                      batch_size=cfg.batch_size)
+    else:
+        flow = spec.build_model(device=device, generator=generator)
+        loaders = spec.load_data(batch_size=cfg.batch_size)
+
+    from .train.experiment import Experiment
+    exp = Experiment(flow, *loaders, cfg, device=device)
+    if args.resume is not None:
+        exp.load(args.resume or None)
+    summary = exp.run()
+    print(json.dumps({k: _j(v) for k, v in summary.items()}))
+    return 0
+
+
+def _smoke_data_size(spec):
+    return (3, 8, 8) if "cifar" in spec.name or "imagenet" in spec.name \
+        else (1, 8, 8)
+
+
+def _smoke_model(spec, device, generator):
+    """A miniature model of the same family as the experiment: the JAX
+    CLI's rule for the step kinds the port builds (``ff`` for the FInC
+    Flow names, else ``inv_conv_no_pad``)."""
+    from .models.glow import build_glow
+    name = spec.name
+    kind = "ff" if name.startswith("ff") or "_ff_" in name \
+        else "inv_conv_no_pad"
+    return build_glow(_smoke_data_size(spec), step_kind=kind, num_blocks=2,
+                      block_size=2, coupling_width=16, generator=generator,
+                      device=device)
+
+
+def _j(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return str(v)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """Datasets of the ported paths, held as numpy arrays in host memory."""
 
-from . import imagenet, mnist, synthetic
+from . import digits, imagenet, mnist, patches, synthetic
 from .loader import ArrayLoader
 
-__all__ = ["ArrayLoader", "imagenet", "mnist", "synthetic"]
+__all__ = ["ArrayLoader", "digits", "imagenet", "mnist", "patches",
+           "synthetic"]

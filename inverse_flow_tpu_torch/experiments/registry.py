@@ -1,0 +1,131 @@
+"""Named experiments of the port.
+
+The entries of ``inverse_flow_tpu/experiments/registry.py`` that the port
+builds, under the same names and with the same ``ExperimentConfig``s (a
+copy here: the port imports nothing of the JAX package). ``build_model``
+takes ``device`` (the CUDA card by default) and ``generator``; the other
+JAX names raise, naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from ..data import digits, imagenet, mnist, patches
+from ..models.glow import build_glow
+from ..train.config import ExperimentConfig
+
+
+@dataclass(frozen=True)
+class ExperimentSpec:
+    name: str
+    build_model: Callable          # (device="cuda", generator=None) -> Flow
+    load_data: Callable            # (batch_size, **kw) -> 3 loaders
+    config: ExperimentConfig
+
+
+EXPERIMENTS = {}
+
+# the JAX registry's other names, by the ROADMAP item that ports them
+NOT_PORTED = {
+    **dict.fromkeys(("exact_fc_mnist", "real_digits_fc", "if_cnn_mnist",
+                     "if_exact_cnn_mnist", "exact_cnn_mnist",
+                     "if_conv1x1_glow_mnist", "if_glow_cifar",
+                     "ff_glow_cifar"), "1.4"),
+    **dict.fromkeys(("selfnorm_fc_mnist", "selfnorm_cnn_mnist",
+                     "emerging_cnn_mnist", "exponential_cnn_mnist",
+                     "selfnorm_glow_mnist", "geco_selfnorm_glow_mnist",
+                     "conv1x1_glow_mnist", "selfnorm_glow_cifar",
+                     "conv1x1_glow_cifar", "selfnorm_glow_imagenet",
+                     "conv1x1_glow_imagenet"), "1.5"),
+    **dict.fromkeys(("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"),
+                    "1.7"),
+    **dict.fromkeys(("if_timescaling", "if_jacobi_timescaling",
+                     "if_auto_timescaling", "snf_timescaling",
+                     "if_tall_timescaling", "if_jacobi_tall_timescaling",
+                     "if_auto_tall_timescaling", "memory_speed"), "1.8"),
+}
+
+
+def _register(name, build, load_data, config):
+    def build_model(device="cuda", generator=None):
+        return build(device=device, generator=generator)
+    EXPERIMENTS[name] = ExperimentSpec(name, build_model, load_data, config)
+
+
+def get_experiment(name: str) -> ExperimentSpec:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"experiment '{name}' is not ported yet (ROADMAP "
+            f"{NOT_PORTED[name]})")
+    if name not in EXPERIMENTS:
+        raise KeyError(f"unknown experiment '{name}'; available: "
+                       + ", ".join(sorted(EXPERIMENTS)))
+    return EXPERIMENTS[name]
+
+
+MNIST = (1, 28, 28)
+IMAGENET32 = (3, 32, 32)
+DIGITS = (1, 8, 8)
+PATCHES = (3, 16, 16)
+
+_register(
+    "if_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="inv_conv_no_pad", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="Spline", n_bins=5,
+                            tail_bound=20.0, **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L-16K_IF_Glow_MNIST", lr=1e-5, batch_size=100,
+                     epochs=2000, warmup_epochs=1, gamma=0.96170,
+                     scheduler_name="ExponentialLR", grad_clip_norm=None,
+                     weight_clamp=0.01, modified_grad=True,
+                     add_recon_grad=True, sym_recon_grad=True,
+                     recon_loss_weight=0.0, sample_true_inv=True,
+                     eval_train=True))
+
+_register(
+    "ff_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="ff", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="Spline", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L-16K FF Glow MNIST", lr=1e-5, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     sym_recon_grad=True, recon_loss_weight=10.0,
+                     weight_clamp=0.01, scheduler_name="None"))
+
+_register(
+    "if_glow_imagenet32",
+    lambda **kw: build_glow(IMAGENET32, step_kind="inv_conv_no_pad",
+                            num_blocks=3, block_size=48, coupling_width=256,
+                            actnorm=True, split_prior=True,
+                            activation="Spline", **kw),
+    lambda **kw: imagenet.load_data(size=32, **kw),
+    ExperimentConfig(name="IF Glow ImageNet32", lr=1e-5, batch_size=100,
+                     modified_grad=True, add_recon_grad=False,
+                     scheduler_name="None"))
+
+_register(
+    "real_digits_glow",
+    lambda **kw: build_glow(DIGITS, step_kind="inv_flow_unit", num_blocks=2,
+                            block_size=4, coupling_width=64, actnorm=True,
+                            split_prior=True, activation="SLR", **kw),
+    digits.load_data,
+    ExperimentConfig(name="IF Glow RealDigits", lr=1e-3, batch_size=100,
+                     epochs=30, warmup_epochs=2, modified_grad=True,
+                     add_recon_grad=False, recon_loss_weight=0.0,
+                     scheduler_name="None", eval_train=False))
+
+_register(
+    "real_patches_glow",
+    lambda **kw: build_glow(PATCHES, step_kind="inv_flow_unit",
+                            num_blocks=2, block_size=4, coupling_width=64,
+                            actnorm=True, split_prior=True, activation="SLR",
+                            **kw),
+    patches.load_data,
+    ExperimentConfig(name="IF Glow RealPatches", lr=1e-3, batch_size=104,
+                     epochs=30, warmup_epochs=2, modified_grad=True,
+                     add_recon_grad=False, recon_loss_weight=0.0,
+                     scheduler_name="None", eval_train=False))

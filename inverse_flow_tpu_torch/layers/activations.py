@@ -2,9 +2,8 @@
 
 Port of ``inverse_flow_tpu/layers/activations.py``: ``SplineActivation``
 with ``individual_weights=True``, the flagship's setting (one knot set per
-tensor position, shared over the batch), both directions, and
-``SmoothLeakyRelu``, forward direction (its Newton inverse is not ported:
-``inverse`` raises).
+tensor position, shared over the batch), and ``SmoothLeakyRelu``, both
+directions each.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..ops.activations import slr, slr_inverse, slr_prime
 from .base import FlowLayer, sum_except_batch
 from .splines import unconstrained_rational_quadratic_spline
 
@@ -50,13 +50,17 @@ class SplineActivation(FlowLayer):
 class SmoothLeakyRelu(FlowLayer):
     """``alpha*x + (1-alpha)*softplus(x)``; ldj ``sum log(alpha +
     (1-alpha)*sigmoid(x))``. softplus is ``logaddexp(x, 0)``, the JAX
-    formula, with no threshold (``F.softplus`` returns x above 20)."""
+    formula, with no threshold (``F.softplus`` returns x above 20). The
+    inverse is JAX's 100-step Newton loop, one kernel launch on the card
+    (:func:`~inverse_flow_tpu_torch.ops.activations.slr_inverse`)."""
 
     def __init__(self, alpha: float = 0.3):
         super().__init__()
         self.alpha = alpha
 
     def forward_with(self, p, x, generator=None):
-        a = self.alpha
-        y = a * x + (1 - a) * torch.logaddexp(x, torch.zeros_like(x))
-        return y, sum_except_batch(torch.log(a + (1 - a) * torch.sigmoid(x)))
+        return (slr(x, self.alpha),
+                sum_except_batch(torch.log(slr_prime(x, self.alpha))))
+
+    def inverse_with(self, p, z, generator=None):
+        return slr_inverse(z, self.alpha)

@@ -1,7 +1,8 @@
 """Flow composition: layers, then the base distribution.
 
 Port of ``inverse_flow_tpu/layers/sequential.py:Flow`` (forward,
-``cheap_log_prob``, ``data_init``, ``sample``, ``reconstruct``). The ldj of
+``forward_verbose``, ``cheap_log_prob``, ``data_init``, ``sample``,
+``reconstruct``). The ldj of
 each layer is added once. No layer of the port has an exact-logdet path or
 an exact inverse that differs from its forward or inverse, so the cheap
 log-prob is the exact one and there is one kind of sample.
@@ -33,6 +34,18 @@ class Flow(nn.Module):
             x, ldj = layer(x, generator)
             logdet = logdet + ldj
         return x, self.base_distribution.log_prob(x) + logdet
+
+    def forward_verbose(self, x, generator=None):
+        """:meth:`forward` that also returns each layer's mean ldj under
+        the JAX keys ``f"{i:02d}_{type(layer).__name__}"``: (z, log_px,
+        {key: 0-d tensor})."""
+        logdet = torch.zeros((x.shape[0],), device=x.device)
+        per_layer = {}
+        for i, layer in enumerate(self.layers):
+            x, ldj = layer(x, generator)
+            logdet = logdet + ldj
+            per_layer[f"{i:02d}_{type(layer).__name__}"] = ldj.mean()
+        return x, self.base_distribution.log_prob(x) + logdet, per_layer
 
     def cheap_log_prob(self, x, generator=None):
         return self.forward(x, generator)[1]

@@ -96,6 +96,17 @@ def chain_solve_lib(device_index: int) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def slr_inverse_lib() -> ctypes.CDLL:
+    """``csrc/slr_inverse.cu``, built and loaded once per process."""
+    lib = ctypes.CDLL(build("slr_inverse"))
+    lib.slr_inverse_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_float,
+                                    ctypes.c_int, ctypes.c_void_p]
+    lib.slr_inverse_f32.restype = ctypes.c_int
+    return lib
+
+
 def cluster_occupancy(device_index: int, b: int, rcw: int, kcw: int) -> int:
     """How many clusters of the chain's cluster kernel can be resident at
     once on CUDA device ``device_index`` (the current device) at this

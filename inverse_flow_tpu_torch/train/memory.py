@@ -5,7 +5,8 @@ caching allocator's counters: allocated bytes, and the peak since the
 previous snapshot (``torch.cuda.max_memory_allocated``, reset by
 ``reset_peak_memory_stats`` after each read, so each epoch reports its own
 peak). The device is the CUDA card unless the caller names another; on a
-CPU device there is nothing to read, and a snapshot raises.
+CPU device there is nothing to read: a snapshot raises and ``log_to`` logs
+nothing.
 """
 
 from __future__ import annotations
@@ -42,3 +43,11 @@ class MemoryTracker:
         }
         torch.cuda.reset_peak_memory_stats(self.device)
         return snap
+
+    def log_to(self, logger, prefix: str = "Memory"):
+        """Log a snapshot's values as ``"<prefix> <key>"``; nothing on a
+        CPU device."""
+        if not self.available:
+            return
+        for key, val in self.snapshot().items():
+            logger.log(f"{prefix} {key}", val)

@@ -1,4 +1,5 @@
-"""The chain kernel's wrapper, and the CUDA kernel on the card.
+"""The chain kernel's and the SLR-inverse kernel's wrappers, and the CUDA
+kernels on the card.
 
 This file imports no JAX, so the card's tests run where JAX is not
 installed:
@@ -22,6 +23,7 @@ import torch
 
 from inverse_flow_tpu_torch.layers import Flow
 from inverse_flow_tpu_torch.models.glow import build_glow
+from inverse_flow_tpu_torch.ops import activations as tact
 from inverse_flow_tpu_torch.ops import fused_chain as tfc
 from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
 
@@ -315,3 +317,62 @@ def test_flow_sample_kernel_matches_plain_chain(cuda_device):
         ref = body.sample(8, noise=noise)
     assert torch.isfinite(y).all()
     assert ((y - ref).norm() / ref.norm()).item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The SmoothLeakyRelu inverse kernel (csrc/slr_inverse.cu)
+# ---------------------------------------------------------------------------
+
+# imagenet32's three SLR shapes and real_digits_glow's two
+SLR_SHAPES = [(12, 16, 16), (24, 8, 8), (48, 4, 4), (4, 4, 4), (8, 2, 2)]
+
+
+def _slr_y(shape, seed=0):
+    y = np.random.RandomState(seed).uniform(-40, 40, shape)
+    y.reshape(-1)[:2] = [40.0, -40.0]
+    return torch.from_numpy(y.astype(np.float32))
+
+
+def test_slr_inverse_cpu_is_the_plain_loop():
+    y = _slr_y((2, 4, 4, 4))
+    before = tact.slr_inverse.launches
+    assert torch.equal(tact.slr_inverse(y, 0.3),
+                       tact.slr_inverse_reference(y, 0.3))
+    assert tact.slr_inverse.launches == before
+    with pytest.raises(ValueError):
+        tact.slr_inverse(y.to("meta"), 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [100, 1])
+@pytest.mark.parametrize("shape", SLR_SHAPES)
+def test_slr_kernel_matches_plain_loop(cuda_device, shape, b):
+    """One launch, against the plain loop on the card, within 1e-5 *
+    max(1, max|y|) at |y| up to 40."""
+    y = _slr_y((b,) + shape).to(cuda_device)
+    before = tact.slr_inverse.launches
+    x = tact.slr_inverse(y, 0.3)
+    torch.cuda.synchronize()
+    assert tact.slr_inverse.launches == before + 1
+    ref = tact.slr_inverse_reference(y, 0.3)
+    assert (x - ref).abs().max().item() <= 1e-5 * 40.0
+
+
+@pytest.mark.cuda
+def test_slr_kernel_floor_strides_and_checks(cuda_device):
+    """alpha 0.005, where f' is floored (x up to 200 |y|: the limit scales
+    with max|x|); a non-contiguous input; an empty one; float64 and a
+    tensor that needs a gradient are refused."""
+    y = _slr_y((100, 12, 16, 16), seed=1).to(cuda_device)
+    x = tact.slr_inverse(y, 0.005)
+    ref = tact.slr_inverse_reference(y, 0.005)
+    assert (tact.slr_prime(ref, 0.005) < tact.FPRIME_FLOOR).any()
+    assert (x - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    yt = y.transpose(1, 3)
+    assert (tact.slr_inverse(yt, 0.3) - tact.slr_inverse_reference(
+        yt, 0.3)).abs().max().item() <= 4e-4
+    assert tact.slr_inverse(y[:0], 0.3).shape == (0, 12, 16, 16)
+    with pytest.raises(TypeError):
+        tact.slr_inverse(y.double(), 0.3)
+    with pytest.raises(NotImplementedError):
+        tact.slr_inverse(y.clone().requires_grad_(), 0.3)

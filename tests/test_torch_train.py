@@ -316,6 +316,7 @@ def _small_experiment(tmp_path, **kw):
     cfg = ExperimentConfig(name="small", batch_size=8, lr=1e-3,
                            weight_clamp=0.01, log_interval=1,
                            timing_interval=1, timing_window=2,
+                           sample_dir=str(tmp_path / "s"),
                            metrics_path=str(tmp_path / "m.jsonl"), **kw)
     loader = ArrayLoader(data.astype(np.float32), 8)
     return Experiment(flow, loader, loader, loader, cfg, device="cpu")
