@@ -26,11 +26,13 @@ from seed 0, batch 100 (104 for the patches):
 in phases:
 
   1. device: the card's name and power limit;
-  2. build: the chain kernels and the SLR-inverse kernel from
+  2. build: the chain kernels and the SLR-inverse kernels from
      ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source, all
      started together), each kernel's registers, shared memory and
-     spills, and the cluster kernel's resident clusters at every main-path
-     shape (:func:`print_build`);
+     spills, the cluster kernel's resident clusters at every main-path
+     shape, and the wide cluster kernel's plan (row groups, resident or
+     streamed slices, resident clusters) at the wide shapes
+     (:func:`print_build`);
   3. kernel: the kernel the dispatch picks (the cluster kernel at every
      main-path shape) against its plain PyTorch version on the card at
      the flagship's shapes (and both scan directions, the padded tail and
@@ -68,18 +70,30 @@ in phases:
      ``Experiment.sample``; then 10 train steps with the registry's config
      and no launch (:func:`phase_ff`);
  10. SLR and real data: the SLR-inverse kernel against its plain loop at
-     every launch shape, timed beside it and its bound (:func:`check_slr`);
+     every launch shape, timed beside its first design (forced), the plain
+     loop and two bounds, on the steps these inputs need and on 100 steps
+     (:func:`check_slr`);
      imagenet32's sampling on phase 8's model, 144 SLR-kernel launches per
      sample, ``Flow.sample`` and ``Experiment.sample`` with the kernel and
      the plain loop in turns (:func:`sample_imagenet32`);
      ``real_digits_glow`` and ``real_patches_glow`` through ``run()``, held
      against the TPU artifacts in ``results/`` (:func:`phase_real_data`);
      a resume from a checkpoint (:func:`phase_resume`) and the CLI's smoke
-     run (:func:`phase_cli`).
+     run (:func:`phase_cli`);
+ 11. wide: the wide cluster kernel at the two wide blocks the cluster
+     kernel refuses (W1: the paper's Fig. 4 tall sweep at H = 4160; W2: an
+     ImageNet64 Glow's first level), forward and backward, against its
+     plain version and timed beside the streaming kernel (forced), the
+     plain version, the library call and the bound; checked at RCW = KCW =
+     2048 and 512; W1's model (2 x ``InvFlowNoPad(1, (2, 2))`` at (128, 1,
+     4160, 1)): loss and backward with every launch on the wide kernel,
+     against the plain chain, timed beside it and the streaming kernel
+     (:func:`phase_wide`).
 
 Every chain launch of the flagship, imagenet32 and ff paths must go to
-the cluster kernel (:func:`cluster_only`); the real-data runs print the
-variant of each launch shape. Every phase prints one line or more and its
+the cluster kernel (:func:`cluster_only`), every one of W1's model to the
+wide cluster kernel; the real-data runs print the variant of each launch
+shape. Every phase prints one line or more and its
 seconds; the line
 before the last is the kernel summary as JSON, the last ``{"ok": true,
 "device": ...}``. Any
@@ -143,6 +157,16 @@ SLR_SHAPES = [(100, 12, 16, 16), (100, 24, 8, 8), (100, 48, 4, 4),
               (1, 12, 16, 16), (1, 24, 8, 8), (1, 48, 4, 4),
               (100, 4, 4, 4), (100, 8, 2, 2)]
 SLR_MUFU_PER_STEP = 3
+# the wide blocks that the cluster kernel refuses, on the wide cluster
+# kernel: (C, H, W), kernel size, batch. W1: the paper's Fig. 4 tall sweep
+# at its longest image (``if_tall_timescaling``: 2 x InvFlowNoPad(1, (2, 2))
+# on (128, 1, 4160, 1); RCW = 520, KCW = 1, NB = 8); W2: an ImageNet64
+# Glow's first level under a 3x3 kernel (RCW = KCW = 768, NB = 16). Edges,
+# checked and not timed: RCW = KCW = 2048 ((64, 16, 16)) at a small batch,
+# and RCW = KCW = 512 ((32, 8, 8)).
+WIDE_SHAPES = {"W1": ((1, 4160, 1), (2, 2), 128),
+               "W2": ((12, 32, 32), (3, 3), BATCH)}
+WIDE_EDGES = [((64, 16, 16), 4), ((32, 8, 8), BATCH)]
 # the real-data runs: epochs (the TPU artifacts' 40), and how far the port
 # may land from the artifacts (results/real_*_bpd.jsonl): three times the
 # spread of the port's own runs at seeds 0-2 on the CPU
@@ -290,10 +314,12 @@ def chain_bound(args, torch):
     return bytes_ms, "bytes", fma
 
 
-def time_launch(x, ws, orders, backward, reps, rounds, torch):
+def time_launch(x, ws, orders, backward, reps, rounds, torch,
+                variant="cluster"):
     """One launch's function timed in turns on the same inputs, the device
     running behind the host (:func:`time_ms`): the kernel the dispatch
-    picks (the cluster kernel at every shape of the main paths), the
+    picks (``variant``: the cluster kernel at every shape of the main
+    paths, the wide cluster kernel at the wide shapes), the
     streaming kernel forced, the plain version and the library call; the
     streaming kernel checked against the plain version to ``1e-5 *
     max(1, max|y|)`` and the library result against the kernel's.
@@ -305,8 +331,8 @@ def time_launch(x, ws, orders, backward, reps, rounds, torch):
     make = fused_chain.backward_inputs if backward else \
         fused_chain.chain_inputs
     args = make(x, ws, orders)
-    if fused_chain.chain_variant(args[0].shape[2], args[4]) != "cluster":
-        fail(f"{tuple(x.shape)} {orders} does not dispatch to the cluster "
+    if fused_chain.chain_variant(args[0].shape[2], args[4]) != variant:
+        fail(f"{tuple(x.shape)} {orders} does not dispatch to the {variant} "
              f"kernel")
     library = library_chain(x, ws, orders, backward, torch)
     _, c, h, w = x.shape
@@ -334,30 +360,34 @@ def time_launch(x, ws, orders, backward, reps, rounds, torch):
     return t, chain_bound(args, torch), lib_err
 
 
-def solve_operands(chw, orders, gen, dev, torch):
-    """A batch of 100 inputs (C, H, W) and one masked kernel per order,
-    of std 0.1 / sqrt(C): at every case max|y| stays near 5 while the
-    solves move y by a quarter to three fifths of |x|. (A std of 0.1
+def solve_operands(chw, orders, gen, dev, torch, b=BATCH, kernel=(3, 3)):
+    """A batch of ``b`` inputs (C, H, W) and one masked ``kernel`` per
+    order, of std 0.1 / sqrt(C): at every case max|y| stays near 5 while
+    the solves move y by a quarter to three fifths of |x|. (A std of 0.1
     at C >= 12 drives four chained solves to |y| of 1e3-1e4, which would
     loosen the ``1e-5 * max|y|`` limit as far.)"""
     from inverse_flow_tpu_torch.ops.inv_conv import apply_mask
 
     c = chw[0]
-    x = torch.randn((BATCH,) + chw, generator=gen, device=dev)
+    x = torch.randn((b,) + chw, generator=gen, device=dev)
     ws = [apply_mask(0.1 / math.sqrt(c) * torch.randn(
-        (c, c, 3, 3), generator=gen, device=dev)) for _ in orders]
+        (c, c) + tuple(kernel), generator=gen, device=dev)) for _ in orders]
     return x, ws
 
 
-def check_forward(cases, label, gen, dev, torch):
-    """The kernel against its plain version on each case's launch, to
-    ``1e-5 * max(1, max|y|)``; returns the largest error."""
+def check_forward(cases, label, gen, dev, torch, b=BATCH, kernel=(3, 3),
+                  variant="cluster"):
+    """The kernel the dispatch picks (``variant``) against its plain
+    version on each case's launch, to ``1e-5 * max(1, max|y|)``; returns
+    the largest error."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
     max_err = 0.0
     for chw, orders in cases:
-        args = fused_chain.chain_inputs(*solve_operands(chw, orders, gen,
-                                                        dev, torch), orders)
+        args = fused_chain.chain_inputs(*solve_operands(
+            chw, orders, gen, dev, torch, b, kernel), orders)
+        if fused_chain.chain_variant(args[0].shape[2], args[4]) != variant:
+            fail(f"{chw} {orders} does not dispatch to the {variant} kernel")
         with torch.inference_mode():
             y = fused_chain.chain_phases(*args)
             torch.cuda.synchronize()
@@ -365,7 +395,7 @@ def check_forward(cases, label, gen, dev, torch):
         err = (y - ref).abs().max().item()
         tol = 1e-5 * max(1.0, ref.abs().max().item())
         max_err = max(max_err, err)
-        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+        print(f"{label}: ({b},{','.join(map(str, chw))}) "
               f"{'-'.join(orders)}: max_abs_err {err:.3e} (tol {tol:.3e})",
               flush=True)
         if not err <= tol:
@@ -374,7 +404,7 @@ def check_forward(cases, label, gen, dev, torch):
     return max_err
 
 
-def check_backward(cases, label, gen, dev, torch):
+def check_backward(cases, label, gen, dev, torch, b=BATCH, kernel=(3, 3)):
     """``FusedChainSolve``'s dx and dW through the kernel (two launches)
     against the same Function on the plain recurrence, to ``1e-5 *
     max(1, max|dx|)`` and ``1e-4 * max|dW|``; returns the largest dx
@@ -389,7 +419,7 @@ def check_backward(cases, label, gen, dev, torch):
 
     max_err = 0.0
     for chw, orders in cases:
-        x, ws = solve_operands(chw, orders, gen, dev, torch)
+        x, ws = solve_operands(chw, orders, gen, dev, torch, b, kernel)
         gy = torch.randn(x.shape, generator=gen, device=dev)
         before = fused_chain.chain_phases.launches
         dx, *dws = vjp(x, ws, orders, gy)
@@ -402,7 +432,7 @@ def check_backward(cases, label, gen, dev, torch):
         dw_rel = max(((d - r).abs().max() / r.abs().max()).item()
                      for d, r in zip(dws, ref_dws))
         max_err = max(max_err, err)
-        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+        print(f"{label}: ({b},{','.join(map(str, chw))}) "
               f"{'-'.join(orders)}: dx max_abs_err {err:.3e} (tol "
               f"{tol:.3e}), dW max err / max|dW| {dw_rel:.3e} (tol 1e-4); "
               f"{launched} kernel launches", flush=True)
@@ -416,31 +446,31 @@ def check_backward(cases, label, gen, dev, torch):
 
 
 def time_rows(shapes, orders, backward, reps, rounds, label, gen, dev, card,
-              torch):
+              torch, b=BATCH, kernel=(3, 3), variant="cluster"):
     """The kernel, plain and library times of one launch at each shape,
     with the bound (:func:`time_launch`); returns their means over the
     shapes, which the path launches equally often."""
     rows = []
     for chw in shapes:
-        x, ws = solve_operands(chw, orders, gen, dev, torch)
+        x, ws = solve_operands(chw, orders, gen, dev, torch, b, kernel)
         t, (bound, bound_by, fma), lib_err = time_launch(
-            x, ws, orders, backward, reps, rounds, torch)
+            x, ws, orders, backward, reps, rounds, torch, variant)
         rows.append((t["kernel"], t["streaming"], t["plain"], t["library"],
                      bound))
-        print(f"{label}: ({BATCH},{','.join(map(str, chw))}) "
+        print(f"{label}: ({b},{','.join(map(str, chw))}) "
               f"{'-'.join(orders)}{' backward launch' * backward}: "
-              f"{launch_times(t, bound, bound_by, fma)}; library vs kernel "
-              f"max abs diff {lib_err:.3e} {card}", flush=True)
+              f"{launch_times(t, bound, bound_by, fma, variant)}; library "
+              f"vs kernel max abs diff {lib_err:.3e} {card}", flush=True)
     return mean_row(rows, bound_by)
 
 
-def launch_times(t, bound, bound_by, fma):
+def launch_times(t, bound, bound_by, fma, variant="cluster"):
     """One line's worth of :func:`time_launch`'s times and the bound."""
-    return (f"cluster kernel {1e3 * t['kernel']:.2f} us, streaming kernel "
+    return (f"{variant} kernel {1e3 * t['kernel']:.2f} us, streaming kernel "
             f"{1e3 * t['streaming']:.2f} us, plain torch "
             f"{1e3 * t['plain']:.2f} us, library {1e3 * t['library']:.2f} "
             f"us per call; bound {1e3 * bound:.3f} us ({bound_by}, {fma} "
-            f"multiply-adds per batch row; the cluster kernel at "
+            f"multiply-adds per batch row; the {variant} kernel at "
             f"{bound / t['kernel']:.3%} of it, the streaming kernel at "
             f"{bound / t['streaming']:.3%})")
 
@@ -1171,15 +1201,17 @@ def phase_ff(dev, gen, card, torch):
     return dict(row, launches=sample_launches)
 
 
-def slr_bound(n):
+def slr_bound(n, steps=None):
     """(bound_ms, bound_by) of one SmoothLeakyRelu inverse on ``n``
     elements: the larger of its bytes (y read, x written: 8 a element) at
     the HBM rate and its special-function operations (``SLR_MUFU_PER_STEP``
-    a Newton step, 100 steps an element) at the SFU rate."""
+    a Newton step) at the SFU rate, over ``steps`` Newton steps in all
+    (the steps these inputs need), or 100 an element when not given."""
     from inverse_flow_tpu_torch.ops.activations import NEWTON_ITERS
 
+    steps = NEWTON_ITERS * n if steps is None else steps
     bytes_ms = 8 * n / PEAK_BYTES_PER_S * 1e3
-    ops_ms = SLR_MUFU_PER_STEP * NEWTON_ITERS * n / PEAK_MUFU_PER_S * 1e3
+    ops_ms = SLR_MUFU_PER_STEP * steps / PEAK_MUFU_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
@@ -1191,16 +1223,34 @@ def slr_inputs(shape, gen, dev, torch):
     return y
 
 
+def slr_steps(y, alpha, torch):
+    """The Newton steps these inputs need under the kernel's exit test
+    (``slr_inverse_steps`` at ``SLR_EXIT_TOL``): (the sum over elements,
+    the mean, the mean over warps of 32 consecutive elements of their
+    maximum, which is what a warp runs)."""
+    from inverse_flow_tpu_torch.ops import activations as act
+
+    steps = act.slr_inverse_steps(y.reshape(-1), alpha,
+                                  tol=act.SLR_EXIT_TOL)
+    pad = (-steps.numel()) % 32
+    warps = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32)
+    return (int(steps.sum()), steps.float().mean().item(),
+            warps.max(1).values.float().mean().item())
+
+
 def check_slr(gen, dev, card, torch):
     """The SLR-inverse kernel against its plain loop at every launch shape
     of the main paths (``SLR_SHAPES``), |y| up to 40, within ``1e-5 *
     max(1, max|y|)``; timed in turns with the device behind the host (as
-    :func:`time_launch`) beside its bound (:func:`slr_bound`); no single
-    PyTorch call computes the function, so there is no library time. Then
-    alpha 0.005, where the f' floor of 1e-2 binds (at the models' alpha
-    0.3 it never does: f' >= alpha), within ``1e-5 * max(1, max|x|)``, x
-    being 200 times y there. Returns the summary entry's numbers, its
-    times means over imagenet32's three shapes at B=100."""
+    :func:`time_launch`) beside the first design (all 100 steps, forced),
+    the plain loop and two bounds (:func:`slr_bound`): on the steps these
+    inputs need (:func:`slr_steps`, printed with their mean and warp
+    maximum) and on 100 steps an element. No single PyTorch call computes
+    the function, so there is no library time. Then alpha 0.005, where the
+    f' floor of 1e-2 binds (at the models' alpha 0.3 it never does: f' >=
+    alpha), within ``1e-5 * max(1, max|x|)``, x being 200 times y there.
+    Returns the summary entry's numbers, its times means over imagenet32's
+    three shapes at B=100."""
     from inverse_flow_tpu_torch.ops import activations as act
 
     rows, max_err = [], 0.0
@@ -1213,24 +1263,37 @@ def check_slr(gen, dev, card, torch):
             err = (x - ref).abs().max().item()
             lim = 1e-5 * max(1.0, y.abs().max().item())
             res = (act.slr(x, SLR_ALPHA) - y).abs().max().item()
-            t = ab_ms({"kernel": lambda: act.slr_inverse(y, SLR_ALPHA),
-                       "plain": lambda: act.slr_inverse_reference(
-                           y, SLR_ALPHA)}, reps=10, rounds=4, torch=torch,
-                      ahead=True)
-        bound, bound_by = slr_bound(y.numel())
-        print(f"slr: {shape}: kernel {1e3 * t['kernel']:.2f} us, plain loop "
-              f"{1e3 * t['plain']:.2f} us per call "
-              f"({t['plain'] / t['kernel']:.0f}x); "
-              f"bound {1e3 * bound:.3f} us ({bound_by}; the kernel at "
-              f"{bound / t['kernel']:.2%} of it); max abs err vs plain "
-              f"{err:.3e} (limit {lim:.1e}), |slr(x) - y| {res:.3e} {card}",
-              flush=True)
-        if not err <= lim:
-            fail(f"the SLR-inverse kernel disagrees with its plain loop at "
-                 f"{shape}: {err}")
+            fixed_err = (act.slr_inverse(y, SLR_ALPHA, variant="fixed")
+                         - ref).abs().max().item()
+            total, mean, warp_max = slr_steps(y, SLR_ALPHA, torch)
+            # the kernels in runs of 50 (a few us each: shorter runs let
+            # the host's enqueue into the time), the plain loop of 3
+            t = dict(ab_ms({"kernel": lambda: act.slr_inverse(y, SLR_ALPHA),
+                            "fixed": lambda: act.slr_inverse(
+                                y, SLR_ALPHA, variant="fixed")},
+                           reps=50, rounds=4, torch=torch, ahead=True),
+                     **ab_ms({"plain": lambda: act.slr_inverse_reference(
+                         y, SLR_ALPHA)}, reps=3, rounds=2, torch=torch))
+        bound, bound_by = slr_bound(y.numel(), total)
+        bound_100, _ = slr_bound(y.numel())
+        print(f"slr: {shape}: kernel {1e3 * t['kernel']:.2f} us, first "
+              f"design (100 steps) {1e3 * t['fixed']:.2f} us, plain loop "
+              f"{1e3 * t['plain']:.2f} us per call; steps needed mean "
+              f"{mean:.3f}, warp maximum mean {warp_max:.3f}; bound "
+              f"{1e3 * bound:.3f} us on those steps ({bound_by}; the kernel "
+              f"at {bound / t['kernel']:.2%} of it), {1e3 * bound_100:.3f} "
+              f"us on 100 steps (the first design at "
+              f"{bound_100 / t['fixed']:.2%}); max abs err vs plain "
+              f"{err:.3e}, first design {fixed_err:.3e} (limit {lim:.1e}), "
+              f"|slr(x) - y| {res:.3e} {card}", flush=True)
+        if not (err <= lim and fixed_err <= lim):
+            fail(f"an SLR-inverse kernel disagrees with its plain loop at "
+                 f"{shape}: {err}, first design {fixed_err}")
         max_err = max(max_err, err)
         if shape in SLR_SHAPES[:3]:
-            rows.append((t["kernel"], t["plain"], bound))
+            rows.append((t["kernel"], t["fixed"], t["plain"], bound,
+                         bound_100, mean, warp_max))
+            row_bound_by = bound_by
     y = slr_inputs((BATCH, 12, 16, 16), gen, dev, torch)
     with torch.inference_mode():
         x = act.slr_inverse(y, 0.005)
@@ -1238,16 +1301,21 @@ def check_slr(gen, dev, card, torch):
         err = (x - ref).abs().max().item()
         lim = 1e-5 * max(1.0, ref.abs().max().item())
         floored = (act.slr_prime(ref, 0.005) < act.FPRIME_FLOOR).float()
+        _, mean, warp_max = slr_steps(y, 0.005, torch)
     print(f"slr: alpha 0.005 at {tuple(y.shape)}: f' floored at "
           f"{floored.mean().item():.1%} of the elements; max|x| "
-          f"{ref.abs().max().item():.1f}; max abs err vs plain {err:.3e} "
-          f"(limit {lim:.1e})", flush=True)
+          f"{ref.abs().max().item():.1f}; steps needed mean {mean:.3f}, "
+          f"warp maximum mean {warp_max:.3f}; max abs err vs plain "
+          f"{err:.3e} (limit {lim:.1e})", flush=True)
     if not (err <= lim and floored.any()):
         fail("the SLR-inverse kernel disagrees with its plain loop where "
              "the floor binds")
-    ms, plain_ms, bound_ms = (statistics.fmean(c) for c in zip(*rows))
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="operations", library_ms=None)
+    ms, fixed_ms, plain_ms, bound_ms, bound_100, mean, warp_max = (
+        statistics.fmean(c) for c in zip(*rows))
+    return dict(max_abs_err=max_err, ms=ms, fixed_ms=fixed_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=row_bound_by,
+                bound_100_steps_ms=bound_100, steps_mean=mean,
+                steps_warp_max=warp_max, library_ms=None)
 
 
 def plain_slr():
@@ -1310,16 +1378,16 @@ def sample_imagenet32(exp, gen, card, torch):
 
     label, flow, dev = "sample_imagenet32", exp.flow, exp.device
     fused_chain.reset_launches()
-    act.slr_inverse.launches = 0
+    act.reset_slr_launches()
     x = flow.sample(BATCH, gen)
     torch.cuda.synchronize()
-    slr_launches = act.slr_inverse.launches
+    slr_launches = act.slr_inverse.launches_by_variant["early_exit"]
     chain = fused_chain.chain_phases.launches
     print(f"{label}: Flow.sample of {BATCH}: {slr_launches} SLR-kernel "
-          f"launches, {chain} chain launches; shape {tuple(x.shape)}, "
-          f"finite values {torch.isfinite(x).float().mean().item():.1%}",
-          flush=True)
-    if slr_launches != 144 or chain != 0:
+          f"launches ({act.slr_inverse.launches_by_variant}), {chain} chain "
+          f"launches; shape {tuple(x.shape)}, finite values "
+          f"{torch.isfinite(x).float().mean().item():.1%}", flush=True)
+    if slr_launches != 144 or act.slr_inverse.launches != 144 or chain != 0:
         fail(f"expected 144 SLR-kernel launches and no chain launch per "
              f"imagenet32 sample, got {slr_launches} and {chain}")
     if x.shape != (BATCH, 3, 32, 32):
@@ -1371,7 +1439,7 @@ def sample_imagenet32(exp, gen, card, torch):
     runs = {"kernel": [], "plain": []}
     for i, mode in enumerate(("kernel", "plain")):
         exp.sample_time = type(exp.sample_time)()
-        act.slr_inverse.launches = 0
+        act.reset_slr_launches()
         with plain_slr() if mode == "plain" else contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1440,7 +1508,7 @@ def real_data_phase(name, epochs, dev, card, torch):
         return variant_of(rcw, kcw)
 
     fused_chain.reset_launches()
-    act.slr_inverse.launches = 0
+    act.reset_slr_launches()
     t0 = time.perf_counter()
     with mock.patch.object(exp, "train_epoch", timed_epoch), \
             mock.patch.object(fused_chain, "chain_variant", recorded_variant):
@@ -1612,6 +1680,138 @@ def phase_cli(card):
         fail("the CLI's smoke run did not finish")
 
 
+def tall_model(dev, torch):
+    """W1's model as the JAX sweep builds it
+    (``inverse_flow_tpu/experiments/timescaling.py``):
+    ``Flow(GaussianPrior((1, 4160, 1)), 2 x InvFlowNoPad(1, (2, 2)))``,
+    weights from seed 0 at the layer's init plus normal(0, 0.05), so that
+    each solve moves x (the init alone is near the identity)."""
+    from inverse_flow_tpu_torch.distributions import GaussianPrior
+    from inverse_flow_tpu_torch.layers import Flow, InvFlowNoPad
+
+    gen = torch.Generator(dev).manual_seed(0)
+    chw = WIDE_SHAPES["W1"][0]
+    flow = Flow(GaussianPrior(chw), [
+        InvFlowNoPad(1, (2, 2), generator=gen, device=dev)
+        for _ in range(2)])
+    with torch.no_grad():
+        for p in flow.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen, device=dev))
+    return flow, gen
+
+
+def phase_tall(dev, card, torch):
+    """W1's model at (128, 1, 4160, 1): one loss and backward with the
+    launch counts set to 0 just before and read just after (2 solves
+    forward, 2 in the backward, every one on the wide cluster kernel);
+    log p(x) and the gradients against the same model on the plain chain,
+    to ``LOGPX_RTOL`` and ``GRAD_RTOL``; ms per loss and backward against
+    the plain chain and the streaming kernel forced. Returns the
+    (forward, backward) launches."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    label = "tall"
+    flow, gen = tall_model(dev, torch)
+    chw, _, b = WIDE_SHAPES["W1"]
+    x = torch.randn((b,) + chw, generator=gen, device=dev)
+    params = list(flow.parameters())
+    solve_bwd = fused_chain.FusedChainSolve.backward
+    bwd = [0]
+
+    def counted_backward(ctx, gy):
+        before = fused_chain.chain_phases.launches
+        out = solve_bwd(ctx, gy)
+        bwd[0] += fused_chain.chain_phases.launches - before
+        return out
+
+    def step():
+        _, lp = flow(x)
+        return lp.detach(), torch.autograd.grad(-lp.mean(), params)
+
+    with mock.patch.object(fused_chain.FusedChainSolve, "backward",
+                           staticmethod(counted_backward)):
+        fused_chain.reset_launches()
+        lp, grads = step()
+        torch.cuda.synchronize()
+        by = dict(fused_chain.chain_phases.launches_by_variant)
+    launches = fused_chain.chain_phases.launches
+    print(f"{label}: loss and backward at ({b},1,4160,1): {launches} chain "
+          f"launches ({bwd[0]} in the backward), by variant {by}", flush=True)
+    if by != {"cluster": 0, "cluster_wide": 4, "streaming": 0} or bwd[0] != 2:
+        fail(f"W1's model: expected 4 chain launches, 2 of them backward, "
+             f"all on the wide cluster kernel; got {by}, {bwd[0]} backward")
+    with plain_chain(fused_chain):
+        lp_ref, g_ref = step()
+    lp_rel = ((lp - lp_ref).abs() / lp_ref.abs()).max().item()
+    g_rel = max(((a - r).norm() / r.norm()).item()
+                for a, r in zip(grads, g_ref))
+    print(f"{label}: log p(x) vs plain chain max rel err {lp_rel:.3e} (tol "
+          f"{LOGPX_RTOL:.0e}); gradients max |g - g_plain| / |g_plain| "
+          f"{g_rel:.3e} (tol {GRAD_RTOL:.0e}); mean log p(x) "
+          f"{lp.mean().item():.4f}", flush=True)
+    if not (torch.isfinite(lp).all() and lp_rel <= LOGPX_RTOL
+            and g_rel <= GRAD_RTOL):
+        fail("W1's model on the wide cluster kernel disagrees with the "
+             "plain chain")
+
+    def plain():
+        with plain_chain(fused_chain):
+            step()
+
+    def streaming():
+        with mock.patch.object(fused_chain, "chain_variant",
+                               lambda rcw, kcw: "streaming"):
+            step()
+
+    t = ab_ms({"kernel": step, "plain": plain, "streaming": streaming},
+              reps=3, rounds=4, torch=torch)
+    print(f"{label}: {t['kernel']:.3f} ms per loss and backward of {b} on "
+          f"the wide cluster kernel (plain chain {t['plain']:.3f}, streaming "
+          f"kernel forced {t['streaming']:.3f}), CUDA events, median of 4 "
+          f"turns of 3 {card}", flush=True)
+    return launches - bwd[0], bwd[0]
+
+
+def phase_wide(dev, gen, card, torch):
+    """Phase 11: the wide cluster kernel. At W1 and W2 (``WIDE_SHAPES``),
+    forward and the backward's launch, against its plain version (and dx,
+    dW through ``FusedChainSolve``) and timed beside the streaming kernel
+    forced, the plain version, the library call and the bound; at the
+    edges (``WIDE_EDGES``) checked, not timed; then W1's model
+    (:func:`phase_tall`). Returns the summary entries' times and errors
+    (means over W1 and W2) and the model's launches."""
+    label = "wide"
+    on = dict(gen=gen, dev=dev, torch=torch)
+    rows, errs = {False: [], True: []}, {False: 0.0, True: 0.0}
+    for name, (chw, kernel, b) in WIDE_SHAPES.items():
+        shape = dict(b=b, kernel=kernel)
+        errs[False] = max(errs[False], check_forward(
+            [(chw, ("TL",))], f"{label}: {name}", variant="cluster_wide",
+            **shape, **on))
+        errs[True] = max(errs[True], check_backward(
+            [(chw, ("TL",))], f"{label}: {name} backward", **shape, **on))
+        for backward in (False, True):
+            row = time_rows([chw], ("TL",), backward, 10, 4,
+                            f"{label}: {name}", card=card,
+                            variant="cluster_wide", **shape, **on)
+            rows[backward].append(row)
+    for chw, b in WIDE_EDGES:
+        check_forward([(chw, ("TL", "BR"))], f"{label}: edge",
+                      variant="cluster_wide", b=b, **on)
+        check_backward([(chw, ("TL",))], f"{label}: edge backward", b=b,
+                       **on)
+    launches = phase_tall(dev, card, torch)
+
+    def mean(rs):
+        out = {k: statistics.fmean(r[k] for r in rs)
+               for k in rs[0] if k != "bound_by"}
+        return dict(out, bound_by=max(rs, key=lambda r: r["bound_ms"])[
+            "bound_by"])
+
+    return [dict(mean(rows[bwd]), max_abs_err=errs[bwd], launches=n)
+            for bwd, n in ((False, launches[0]), (True, launches[1]))]
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -1620,12 +1820,16 @@ def print_build(dev, _build, fused_chain):
     needs (one wave when they all fit)."""
     for line in _build.build_log("chain_solve").splitlines():
         if "Compiling entry" in line:
-            name = "cluster" if "cluster_kernel" in line else "streaming"
+            name = ("cluster_wide" if "cluster_wide_kernel" in line else
+                    "cluster" if "cluster_kernel" in line else "streaming")
         elif "registers" in line or "spill" in line:
             print(f"build: {name} kernel: {line.strip()}", flush=True)
     for line in _build.build_log("slr_inverse").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: slr_inverse kernel: {line.strip()}", flush=True)
+        if "Compiling entry" in line:
+            name = "fixed" if "fixed_kernel" in line else "early_exit"
+        elif "registers" in line or "spill" in line:
+            print(f"build: slr_inverse {name} kernel: {line.strip()}",
+                  flush=True)
     for rcw, kcw in ((392, 112), (336, 112), (384, 384)):
         for b in (BATCH, 1):
             active = _build.cluster_occupancy(dev.index, b, rcw, kcw)
@@ -1636,6 +1840,21 @@ def print_build(dev, _build, fused_chain):
                   f"{fused_chain.CLUSTER_SIZE} resident at once, {need} "
                   f"needed: {'one wave' if need <= active else 'waves'}",
                   flush=True)
+    for name, (chw, kernel, b) in list(WIDE_SHAPES.items()) + [
+            (f"edge {e[0]}", (e[0], (3, 3), e[1])) for e in WIDE_EDGES]:
+        c, h, w = chw
+        r, _ = fused_chain.choose_block_rows_fused(h, c * w, kernel[0])
+        rcw, kcw = r * c * w, min((kernel[0] - 1) * c * w, r * c * w)
+        plan = _build.cluster_wide_plan(dev.index, b, rcw, kcw)
+        print(f"build: cluster_wide kernel at {name} RCW={rcw} KCW={kcw} "
+              f"B={b}: {plan['groups']} row groups of "
+              f"{fused_chain.CLUSTER_ROWS} a cluster, "
+              f"{'resident slices' if plan['stages'] == 0 else str(plan['stages']) + ' chunk buffers of ' + str(plan['chunk']) + ' k-columns'}, "
+              f"{plan['smem']} bytes of shared memory a CTA; "
+              f"{plan['active']} clusters of {fused_chain.WIDE_CLUSTER_SIZE} "
+              f"resident at once, {plan['needed']} needed: "
+              f"{'one wave' if plan['needed'] <= plan['active'] else 'waves'}",
+              flush=True)
 
 
 def plain_sample(flow, n, gen):
@@ -1815,16 +2034,22 @@ def main():
     phase_cli(card)
     phase_done(10)
 
-    print(f"smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 11. the wide cluster kernel, W1's model ------------------------
+    wide_rows = phase_wide(dev, gen, card, torch)
+    phase_done(11)
+
+    print(f"smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    def entry(name, launches, **row):
-        # every main-path launch went to the cluster kernel (cluster_only)
-        return dict(name=name, route="cuda", variant="cluster",
+    def entry(name, launches, variant="cluster", **row):
+        # every main-path launch went to the cluster kernel (cluster_only),
+        # every launch of W1's model to the wide one (phase_tall)
+        return dict(name=name, route="cuda", variant=variant,
                     source="inverse_flow_tpu_torch/csrc/chain_solve.cu",
                     replaces="inverse_flow_tpu/ops/fused_chain.py:209",
-                    launches=launches, launches_by_variant={
-                        "cluster": launches, "streaming": 0}, **row)
+                    launches=launches, launches_by_variant=dict(
+                        dict.fromkeys(fused_chain.VARIANTS, 0),
+                        **{variant: launches}), **row)
 
     # times and bounds: means over each path's solve shapes, which it
     # launches equally often (ms: the cluster kernel, streaming_ms: the
@@ -1839,6 +2064,12 @@ def main():
         entry("chain_phases:unit", **unit_rows[0]),
         entry("chain_phases:unit_backward", **unit_rows[1]),
         entry("chain_phases:grouped", **grouped_row),
+        # W1 and W2 (means), the wide cluster kernel; launches: one loss
+        # and backward of W1's model (phase 11, the counts set to 0 just
+        # before)
+        entry("chain_phases:wide", variant="cluster_wide", **wide_rows[0]),
+        entry("chain_phases:wide_backward", variant="cluster_wide",
+              **wide_rows[1]),
         # launches: one imagenet32 Flow.sample of 100 (phase 10, the
         # counts set to 0 just before)
         dict(name="slr_inverse", route="cuda",

@@ -1,35 +1,86 @@
 // The inverse of the smooth leaky ReLU, y = alpha*x + (1-alpha)*softplus(x),
-// by a fixed 100-step Newton-Raphson, for Hopper (sm_90a), float32.
+// by Newton-Raphson from x = y, at most 100 steps, for Hopper (sm_90a),
+// float32.
 //
 // Replaces the JAX package's SmoothLeakyRelu.inverse
 // (inverse_flow_tpu/layers/activations.py:38-46, :61-62), a jax.lax.fori_loop
-// that XLA fuses into one loop. It is not a Pallas kernel: it is the card's
-// counterpart of that fused loop. Written as torch ops, each Newton step
-// launches about ten elementwise kernels, a thousand per layer inverse.
+// of 100 steps that XLA fuses into one loop. It is not a Pallas kernel: it is
+// the card's counterpart of that fused loop. Written as torch ops, each Newton
+// step launches about ten elementwise kernels, a thousand per layer inverse.
 //
-// One thread per element (a grid-stride loop past the resident threads): the
-// element's x stays in registers for all the steps, so the kernel reads y once
-// and writes x once. It is bound by operations, the special-function unit's:
-// each step takes exp(-|x|) once and shares it between the softplus
-// (max(x, 0) + log1p(e)) and the sigmoid, whose 1/(1+e) is folded into the
-// Newton quotient, so a step costs one exp, one log and one division:
+// One thread per element: the element's x stays in registers for all the
+// steps, so a kernel reads y once and writes x once. Each step takes
+// exp(-|x|) once and shares it between the softplus (max(x, 0) + log1p(e))
+// and the sigmoid, whose 1/(1+e) is folded into the Newton quotient:
 //
 //   x <- x - (f(x) - y) * (1 + e) / max(alpha*(1 + e) + (1-alpha)*s, 0.01*(1 + e))
 //
 // with s = 1 for x >= 0, else e, which is f'(x) = alpha + (1-alpha)*sigmoid(x)
-// floored at 1e-2, times (1 + e). Built without --use_fast_math, so expf and
-// log1pf are the accurate ones, as torch's.
+// floored at 1e-2, times (1 + e). Built without --use_fast_math.
+//
+// Two kernels, chosen by ops/activations.py:slr_inverse:
+//
+// slr_inverse_kernel (every call). A step's cost is one dependent chain of
+// about 530 cycles (the accurate expf, log1pf and an IEEE division), and from
+// x = y the iterate settles within a few steps for |y| <= 40, so running all
+// 100 recomputes a constant. Each warp stops once a step has moved every
+// lane's x by at most kExitTol * max(1, |x|) (__all_sync): 2 ulp of 1 below
+// |x| = 1, 2-4 ulp of x above. An exit at a bitwise fixed point would give the
+// 100-step bits exactly, but the reference's own iterate cycles between floats
+// 3 ulp apart for 15.5% of y in [-40, 40] at alpha 0.3 (the residual's rounding,
+// about ulp(y), over f'), which would keep most warps at 100 steps. Within the
+// tolerance Newton has converged, so the result differs from the 100-step x by
+// at most about one such cycle: 2.4e-7 * max(1, |x|) on the reference loop
+// (tests/test_torch_wide.py). The residual f(x) - y, which sets the fixed
+// point, keeps the accurate expf and log1pf; the quotient, which only sets the
+// path to it, uses the approximate division (__fdividef). A grid of one
+// thread per element, so that warps that finish free their slots for waiting
+// blocks; it is bound by the special-function unit's operations on the steps
+// these inputs need (chip_smoke.py counts them).
+//
+// slr_inverse_fixed_kernel, the first design: all `iters` steps, the IEEE
+// division, a grid of at most the resident threads with a grid stride. Kept as
+// a forced variant for the timings.
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kFloor = 1e-2f;
+// a warp stops once every lane's last step moved x by at most this times
+// max(1, |x|): 2^-22
+constexpr float kExitTol = 2.384185791015625e-7f;
 
 __global__ void __launch_bounds__(kThreads)
 slr_inverse_kernel(const float* __restrict__ y, float* __restrict__ x,
                    long long n, float alpha, int iters) {
+  const float beta = 1.0f - alpha;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool live = i < n;  // every lane of a warp takes part in the vote
+  const float yi = live ? y[i] : 0.0f;
+  float xi = yi;
+  for (int k = 0; k < iters; ++k) {
+    const float e = expf(-fabsf(xi));
+    const float f = alpha * xi + beta * (fmaxf(xi, 0.0f) + log1pf(e));
+    const float one_e = 1.0f + e;
+    const float s = xi >= 0.0f ? 1.0f : e;
+    const float den = fmaxf(alpha * one_e + beta * s, kFloor * one_e);
+    const float next = xi - (f - yi) * __fdividef(one_e, den);
+    const bool settled =
+        !live || fabsf(next - xi) <= kExitTol * fmaxf(1.0f, fabsf(xi));
+    xi = next;
+    if (__all_sync(0xffffffffu, settled)) break;
+  }
+  if (live) x[i] = xi;
+}
+
+__global__ void __launch_bounds__(kThreads)
+slr_inverse_fixed_kernel(const float* __restrict__ y, float* __restrict__ x,
+                         long long n, float alpha, int iters) {
   const float beta = 1.0f - alpha;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -52,10 +103,22 @@ slr_inverse_kernel(const float* __restrict__ y, float* __restrict__ x,
 
 }  // namespace
 
-// x = the inverse of y (n floats each, device pointers) on `stream`. Returns
-// the CUDA error of the launch (0 when it was taken).
+// x = the inverse of y (n floats each, device pointers) on `stream`, one
+// thread per element. Returns the CUDA error of the launch (0 when it was
+// taken).
 extern "C" int slr_inverse_f32(const float* y, float* x, long long n,
                                float alpha, int iters, void* stream) {
+  const long long need = (n + kThreads - 1) / kThreads;
+  if (need > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  slr_inverse_kernel<<<static_cast<int>(need), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(y, x, n, alpha,
+                                                            iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design, all `iters` steps: the same arguments.
+extern "C" int slr_inverse_fixed_f32(const float* y, float* x, long long n,
+                                     float alpha, int iters, void* stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -67,8 +130,8 @@ extern "C" int slr_inverse_f32(const float* y, float* x, long long n,
   const long long resident = static_cast<long long>(sms) * (2048 / kThreads);
   const long long need = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(need < resident ? need : resident);
-  slr_inverse_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(y, x, n, alpha,
-                                                            iters);
+  slr_inverse_fixed_kernel<<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      y, x, n, alpha, iters);
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,13 +74,17 @@ def _chain_solve_cdll() -> ctypes.CDLL:
     lib = ctypes.CDLL(build("chain_solve"))
     lib.chain_phases_init.argtypes = []
     lib.chain_phases_init.restype = ctypes.c_int
-    for fn in (lib.chain_phases_f32, lib.chain_phases_cluster_f32):
+    for fn in (lib.chain_phases_f32, lib.chain_phases_cluster_f32,
+               lib.chain_phases_cluster_wide_f32):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     occ = lib.chain_phases_cluster_occupancy
     occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
+    plan = lib.chain_phases_cluster_wide_plan
+    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
     return lib
 
 
@@ -100,10 +104,10 @@ def chain_solve_lib(device_index: int) -> ctypes.CDLL:
 def slr_inverse_lib() -> ctypes.CDLL:
     """``csrc/slr_inverse.cu``, built and loaded once per process."""
     lib = ctypes.CDLL(build("slr_inverse"))
-    lib.slr_inverse_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.c_float,
-                                    ctypes.c_int, ctypes.c_void_p]
-    lib.slr_inverse_f32.restype = ctypes.c_int
+    for fn in (lib.slr_inverse_f32, lib.slr_inverse_fixed_f32):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -118,3 +122,19 @@ def cluster_occupancy(device_index: int, b: int, rcw: int, kcw: int) -> int:
         raise RuntimeError(f"chain_phases_cluster_occupancy failed with CUDA "
                            f"error {err}")
     return n.value
+
+
+def cluster_wide_plan(device_index: int, b: int, rcw: int, kcw: int) -> dict:
+    """The wide cluster kernel's launch plan on CUDA device
+    ``device_index`` (the current device) at batch ``b``: row groups of 8
+    a cluster, chunk buffers (0: resident slices), k-columns a chunk,
+    shared memory bytes a CTA, clusters resident at once and clusters the
+    launch needs."""
+    lib = chain_solve_lib(device_index)
+    out = (ctypes.c_int * 6)()
+    err = lib.chain_phases_cluster_wide_plan(b, rcw, kcw, out)
+    if err != 0:
+        raise RuntimeError(f"chain_phases_cluster_wide_plan failed with CUDA "
+                           f"error {err}")
+    return dict(zip(("groups", "stages", "chunk", "smem", "active",
+                     "needed"), out))

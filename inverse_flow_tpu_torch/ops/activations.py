@@ -7,6 +7,13 @@ inverse is JAX's fixed Newton-Raphson
 f' floored at 1e-2. :func:`slr_inverse` runs it on a CUDA tensor as one
 launch of ``csrc/slr_inverse.cu``, all the steps in registers, and on a CPU
 tensor as :func:`slr_inverse_reference`, the same loop in plain torch.
+
+The kernel stops a warp once a step has moved every lane's x by at most
+``SLR_EXIT_TOL * max(1, |x|)``, where Newton has converged to within
+float32's rounding of the residual (the reference loop's own iterate cycles
+between floats a few ulp apart for some y, so a bitwise fixed point is not
+always reached). :func:`slr_inverse_steps` counts, per element, the steps the
+reference loop needs to settle, bit for bit or within that tolerance.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import torch
 
 NEWTON_ITERS = 100
 FPRIME_FLOOR = 1e-2
+# csrc/slr_inverse.cu:kExitTol, 2^-22: 2 ulp of 1
+SLR_EXIT_TOL = 2.0 ** -22
 
 
 def slr(x, alpha):
@@ -25,19 +34,58 @@ def slr_prime(x, alpha):
     return alpha + (1 - alpha) * torch.sigmoid(x)
 
 
+def _newton_step(x, y, alpha):
+    fprime = torch.clamp(slr_prime(x, alpha), min=FPRIME_FLOOR)
+    return x - (slr(x, alpha) - y) / fprime
+
+
 def slr_inverse_reference(y, alpha, iters=NEWTON_ITERS):
     """The Newton loop in plain torch, step for step JAX's."""
     x = y
     for _ in range(iters):
-        fprime = torch.clamp(slr_prime(x, alpha), min=FPRIME_FLOOR)
-        x = x - (slr(x, alpha) - y) / fprime
+        x = _newton_step(x, y, alpha)
     return x
 
 
-def slr_inverse(y, alpha, iters=NEWTON_ITERS):
+def slr_inverse_steps(y, alpha, iters=NEWTON_ITERS, tol=0.0):
+    """Per element of ``y``, the Newton steps :func:`slr_inverse_reference`
+    runs from x = y until a step moves x by at most ``tol * max(1, |x|)``
+    (int32, at most ``iters``). ``tol`` 0: until a step leaves x unchanged
+    bit for bit, after which it never changes again, so the loop's x after
+    that many steps is its ``iters``-step x. ``tol`` ``SLR_EXIT_TOL``: the
+    kernel's exit test, the work a loop that stops there does on these
+    inputs."""
+    x = y
+    steps = torch.full(y.shape, iters, dtype=torch.int32, device=y.device)
+    done = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    for k in range(1, iters + 1):
+        nxt = _newton_step(x, y, alpha)
+        if tol:
+            fixed = (nxt - x).abs() <= tol * x.abs().clamp(min=1.0)
+        else:
+            fixed = nxt.view(torch.int32) == x.view(torch.int32)
+        fixed &= ~done
+        steps[fixed] = k
+        done |= fixed
+        x = nxt
+    return steps
+
+
+# the kernels of csrc/slr_inverse.cu: "early_exit" stops a warp once its
+# lanes have settled (the one every call takes), "fixed" is the first
+# design, all `iters` steps, kept as a forced variant for the timings
+SLR_VARIANTS = ("early_exit", "fixed")
+_SLR_LAUNCHERS = {"early_exit": "slr_inverse_f32",
+                  "fixed": "slr_inverse_fixed_f32"}
+
+
+def slr_inverse(y, alpha, iters=NEWTON_ITERS, variant=None):
     """x with ``slr(x, alpha) = y``, by ``iters`` Newton steps. CPU tensors
     take :func:`slr_inverse_reference`; a float32 CUDA tensor launches
-    ``slr_inverse_kernel``, counted in ``slr_inverse.launches``."""
+    ``slr_inverse_kernel`` (or ``variant``, forced by the timings),
+    counted in ``slr_inverse.launches`` and ``.launches_by_variant``."""
+    if variant is not None and variant not in SLR_VARIANTS:
+        raise ValueError(f"slr_inverse: unknown variant {variant!r}")
     if y.device.type == "cpu":
         return slr_inverse_reference(y, alpha, iters)
     if y.device.type != "cuda":
@@ -52,15 +100,23 @@ def slr_inverse(y, alpha, iters=NEWTON_ITERS):
         return x
     from ._build import slr_inverse_lib
 
+    variant = variant or "early_exit"
     with torch.cuda.device(y.device):
-        err = slr_inverse_lib().slr_inverse_f32(
+        err = getattr(slr_inverse_lib(), _SLR_LAUNCHERS[variant])(
             y.data_ptr(), x.data_ptr(), y.numel(), float(alpha), int(iters),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"slr_inverse: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"slr_inverse: {variant} kernel launch failed "
+                           f"with CUDA error {err}")
     slr_inverse.launches += 1
+    slr_inverse.launches_by_variant[variant] += 1
     return x
 
 
-slr_inverse.launches = 0
+def reset_slr_launches():
+    """Sets :func:`slr_inverse`'s launch counts to 0."""
+    slr_inverse.launches = 0
+    slr_inverse.launches_by_variant = dict.fromkeys(SLR_VARIANTS, 0)
+
+
+reset_slr_launches()

@@ -10,7 +10,7 @@ unflipped data:
 
     y_b = x_b @ T_eff^T - carry @ G_eff^T
 
-:func:`chain_phases` runs it: on a CUDA tensor one of the two kernels of
+:func:`chain_phases` runs it: on a CUDA tensor one of the kernels of
 ``csrc/chain_solve.cu`` (:func:`chain_variant` picks it from the block
 width), and on a CPU tensor :func:`chain_phases_reference`, the same
 function in plain torch. The operator build (:func:`_phase_matrices`) is
@@ -47,9 +47,7 @@ ORDER_FLAGS = {
 # flip2 . F_o: the orientation of order o's backward solve
 _COMPLEMENT = {"TL": "BR", "TR": "BL", "BL": "TR", "BR": "TL"}
 
-# the streaming kernel keeps a few batch rows of one block and its carry in
-# shared memory (csrc/chain_solve.cu:kMaxRcw); wider blocks need a tiled
-# design
+# the widest block row any kernel takes (csrc/chain_solve.cu:kMaxRcw)
 MAX_RCW = 2048
 # the cluster kernel (csrc/chain_solve.cu: kClusterSize, kMaxCols,
 # kSmemLimit): 8 CTAs split the output columns, at most 64 each, and each
@@ -58,6 +56,13 @@ CLUSTER_SIZE = 8
 CLUSTER_ROWS = 8
 CLUSTER_MAX_COLS = 64
 SMEM_LIMIT = 232448
+# the wide cluster kernel (csrc/chain_solve.cu: kWideCluster, kWideChunks,
+# kWideMaxStages): 16 CTAs split the columns, a cluster takes 1-4 groups
+# of 8 batch rows, and T's and G's slices are held for a phase or streamed
+# in chunks of 256, 128 or 64 k-columns
+WIDE_CLUSTER_SIZE = 16
+WIDE_CHUNKS = (256, 128, 64)
+WIDE_MAX_STAGES = 8
 
 
 def choose_block_rows_fused(h: int, cw: int, kh: int):
@@ -206,22 +211,62 @@ def cluster_smem_bytes(rcw, kcw):
     return 16 + 4 * floats
 
 
+def _wide_cols(rcw):
+    """Output columns per CTA of the wide cluster kernel: ceil(RCW / 16)
+    rounded up to a multiple of 4 (in passes of at most 64)."""
+    return _round4(-(-rcw // WIDE_CLUSTER_SIZE))
+
+
+def cluster_wide_layout(rcw, kcw, groups=1):
+    """(chunk buffers, k-columns a chunk, shared memory bytes) of the wide
+    cluster kernel at block width ``rcw``, carry width ``kcw`` and
+    ``groups`` row groups of 8 a cluster; 0 buffers (and chunk 0): T's and
+    G's slices are resident for a phase; None when the groups do not fit
+    in 227 KB (``csrc/chain_solve.cu:wide_plan``). Its buffers: a 16-byte
+    mbarrier; 8 x groups input rows and carry rows (padded to 4 floats)
+    and two buffers of the CTA's outputs for them; 8 warps x 512 partial
+    sums; then either the slices (row strides 16 past a multiple of 32
+    floats), when a CTA has at most 64 columns and they fit, or as many
+    chunk buffers as fit, up to 8, of the widest chunk (256, 128, 64
+    k-columns) of which 2 fit, each min(columns, 64) rows (stride 16 past
+    a multiple of 32)."""
+    cols = _wide_cols(rcw)
+    fixed = (CLUSTER_ROWS * groups * (_round4(rcw) + _round4(kcw) + 2 * cols)
+             + 8 * CLUSTER_MAX_COLS * CLUSTER_ROWS)
+    avail = (SMEM_LIMIT - 16) // 4 - fixed
+    if avail <= 0:
+        return None
+    slices = cols * (_pad16(rcw) + _pad16(kcw))
+    if cols <= CLUSTER_MAX_COLS and slices <= avail:
+        return 0, 0, 16 + 4 * (fixed + slices)
+    for chunk in WIDE_CHUNKS:
+        stage = min(cols, CLUSTER_MAX_COLS) * _pad16(chunk)
+        stages = min(WIDE_MAX_STAGES, avail // stage)
+        if stages >= 2:
+            return stages, chunk, 16 + 4 * (fixed + stages * stage)
+    return None
+
+
 def chain_variant(rcw, kcw):
     """Which kernel :func:`chain_phases` launches at block width ``rcw``
     and carry width ``kcw``: ``"cluster"`` when a CTA's slices of T and G
     fit in shared memory with its staging rows (at most 64 columns a CTA
-    and :func:`cluster_smem_bytes` within 227 KB), else ``"streaming"``.
-    Raises on a shape neither takes."""
+    and :func:`cluster_smem_bytes` within 227 KB), else ``"cluster_wide"``
+    (every shape with 0 < KCW <= RCW <= 2048). Raises on a shape neither
+    takes. ``"streaming"``, the first design, is only ever forced."""
     if not 0 < kcw <= rcw <= MAX_RCW:
         raise ValueError(f"chain_variant: no kernel takes rcw={rcw} "
                          f"kcw={kcw}")
     if (_cluster_cols(rcw) <= CLUSTER_MAX_COLS
             and cluster_smem_bytes(rcw, kcw) <= SMEM_LIMIT):
         return "cluster"
-    return "streaming"
+    return "cluster_wide"
 
 
-VARIANTS = ("cluster", "streaming")
+VARIANTS = ("cluster", "cluster_wide", "streaming")
+_LAUNCHERS = {"cluster": "chain_phases_cluster_f32",
+              "cluster_wide": "chain_phases_cluster_wide_f32",
+              "streaming": "chain_phases_f32"}
 
 
 def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0, variant=None):
@@ -268,8 +313,7 @@ def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0, variant=None):
     dirs_mask = sum(1 << o for o, flip_h in enumerate(dirs) if flip_h)
     with torch.cuda.device(xb.device):
         lib = chain_solve_lib(xb.device.index)
-        launch = (lib.chain_phases_cluster_f32 if variant == "cluster"
-                  else lib.chain_phases_f32)
+        launch = getattr(lib, _LAUNCHERS[variant])
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(),
                      y.data_ptr(), n, nb, b, rcw, kcw, pad_cw, dirs_mask,

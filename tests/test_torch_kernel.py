@@ -7,10 +7,10 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernel.py
 
 (``--noconftest``: the suite's conftest.py sets JAX up). Without a card the
-``cuda`` tests skip. Each kernel case runs on both CUDA kernels
+``cuda`` tests skip. Each kernel case runs on every CUDA kernel
 (``variant``: the cluster kernel that every model shape dispatches to, and
-the streaming kernel forced); one wide case reaches the streaming kernel
-through the dispatch. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
+the wide cluster kernel and the streaming kernel forced); one wide case
+reaches the wide cluster kernel through the dispatch. Tolerance: max abs error <= 1e-5 * max(1, max|y|),
 float32 round-off of a solve whose outputs are of order 1-10; weight
 gradients (sums over batch and image) to 1e-4 * max|dW_ref|.
 """
@@ -46,7 +46,7 @@ UNIT = ("TL", "TR", "BL", "BR")
 # dense block-diagonal one, one TL order, at the flagship's shapes
 FF_SHAPES = [(4, 14, 14), (8, 7, 7)]
 FF_IDS = ["4x14x14", "8x7x7"]
-VARIANTS = ["cluster", "streaming"]
+VARIANTS = ["cluster", "cluster_wide", "streaming"]
 
 
 def _inputs(chw, n, b=3, seed=0):
@@ -269,16 +269,17 @@ def test_grouped_kernel_matches_reference(cuda_device, chw, b, variant):
 @pytest.mark.cuda
 def test_wide_block_dispatches_to_the_streaming_kernel(cuda_device):
     """(32, 8, 8) solves in blocks of RCW = KCW = 512, whose slices do not
-    fit the cluster kernel's shared memory: the dispatch launches the
-    streaming kernel, which agrees with the plain version, forward and
-    backward; a forced cluster launch is refused and raises."""
+    fit the cluster kernel's shared memory: the dispatch launches the wide
+    cluster kernel (which took such shapes over from the streaming
+    kernel), which agrees with the plain version, forward and backward; a
+    forced cluster launch is refused and raises."""
     args = _args((32, 8, 8), ("TL", "BR"), 7, cuda_device)
     assert args[0].shape[2] == args[4] == 512
-    assert tfc.chain_variant(512, 512) == "streaming"
+    assert tfc.chain_variant(512, 512) == "cluster_wide"
     before = _counts()
     y = tfc.chain_phases(*args)
     torch.cuda.synchronize()
-    _launched("streaming", 1, before)
+    _launched("cluster_wide", 1, before)
     ref = tfc.chain_phases_reference(*args)
     assert (y - ref).abs().max().item() <= _tol(ref.cpu().numpy())
     with pytest.raises(RuntimeError):

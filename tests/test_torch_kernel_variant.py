@@ -1,7 +1,7 @@
-"""The chain kernel's dispatch between its two CUDA kernels, on the CPU.
+"""The chain kernel's dispatch between its CUDA kernels, on the CPU.
 
 ``chain_variant(rcw, kcw)`` picks the cluster kernel wherever a CTA's
-slices of T and G fit in shared memory, the streaming kernel for wider
+slices of T and G fit in shared memory, the wide cluster kernel for wider
 blocks. Every solve shape of the repo's three configurations must go to
 the cluster kernel: the test drives each model's chain-reaching path on
 the CPU at reduced depth and coupling width (the solve shapes depend only
@@ -104,8 +104,9 @@ def test_cluster_smem_bytes(rcw, kcw, smem):
 @pytest.mark.parametrize("rcw,kcw", [(512, 512), (520, 8), (2048, 112)])
 def test_wide_shapes_go_to_the_streaming_kernel(rcw, kcw):
     """Past 227 KB of shared memory (512 x 512: 332 KB), or past 64
-    columns a CTA (RCW > 512)."""
-    assert tfc.chain_variant(rcw, kcw) == "streaming"
+    columns a CTA (RCW > 512): the wide cluster kernel, which took these
+    over from the streaming kernel (now only ever forced)."""
+    assert tfc.chain_variant(rcw, kcw) == "cluster_wide"
 
 
 @pytest.mark.parametrize("rcw,kcw", [(2052, 112), (64, 0), (64, 65)])
@@ -124,7 +125,8 @@ def _args(chw, orders, b):
     return tfc.chain_inputs(x, ws, orders)
 
 
-@pytest.mark.parametrize("variant", [None, "cluster", "streaming"])
+@pytest.mark.parametrize("variant", [None, "cluster", "cluster_wide",
+                                     "streaming"])
 def test_chain_phases_cpu_takes_the_plain_version(variant):
     """On a CPU tensor either variant is the plain version, bit for bit,
     and counts no launch."""
@@ -147,5 +149,5 @@ def test_reset_launches():
     tfc.chain_phases.launches_by_variant["cluster"] += 3
     tfc.reset_launches()
     assert tfc.chain_phases.launches == 0
-    assert tfc.chain_phases.launches_by_variant == {"cluster": 0,
-                                                    "streaming": 0}
+    assert tfc.chain_phases.launches_by_variant == {
+        "cluster": 0, "cluster_wide": 0, "streaming": 0}
