@@ -21,7 +21,13 @@ from seed 0, batch 100 (104 for the patches):
 * ``real_digits_glow`` and ``real_patches_glow`` (the registry's
   real-data Glows: L=2 x K=4 ``InvFlowUnit``, width 64, SLR) trained
   through ``Experiment.run()`` for 40 epochs on the embedded real digits
-  and patches, then scored on their test split,
+  and patches, then scored on their test split;
+* the paper's comparison baselines at their registry configs, led by
+  ``selfnorm_glow_mnist`` (L=2 x K=16 SelfNorm 1x1 steps, width 512, no
+  activation, recon weight 100): SelfNorm's modified gradient, recon loss,
+  GECO and the dense exact log-det and inverse, Glow's 1x1 conv, Emerging
+  (its inverse on the chain kernel) and the CNN and FC flows, one of them
+  (``exact_cnn_mnist``) at batch 1000,
 
 in phases:
 
@@ -88,11 +94,26 @@ in phases:
      2048 and 512; W1's model (2 x ``InvFlowNoPad(1, (2, 2))`` at (128, 1,
      4160, 1)): loss and backward with every launch on the wide kernel,
      against the plain chain, timed beside it and the streaming kernel
-     (:func:`phase_wide`).
+     (:func:`phase_wide`);
+ 12. baselines: the paper's comparison baselines at their registry
+     configs (:func:`phase_baselines`): ``selfnorm_glow_mnist`` (data
+     init, 5 steps with the recon term, eval with the exact correction,
+     exact log p against cheap + correction, cheap and exact samples,
+     ``reconstruct(exact=True)``, ms/step and a profiled step), 3 GECO
+     steps with the weight after each, ``selfnorm_glow_imagenet``'s step
+     and its dense correction's time and memory, ``conv1x1_glow_mnist``
+     and ``if_conv1x1_glow_mnist``, ``emerging_cnn_mnist`` (the chain
+     kernel on Emerging's non-unit operators against its plain version
+     and timed; 3 steps; ``Flow.sample`` with 16 launches against the
+     plain chain; the round trip), ``if_cnn_mnist``, ``exact_cnn_mnist`` at
+     B=1000 (forward, backward and dW against the plain version, timed;
+     one step, its gradients against the plain chain), and 2 steps each of
+     ``selfnorm_cnn_mnist``, ``selfnorm_fc_mnist``, ``exact_fc_mnist`` and
+     ``real_digits_fc``; the phase's seconds.
 
-Every chain launch of the flagship, imagenet32 and ff paths must go to
-the cluster kernel (:func:`cluster_only`), every one of W1's model to the
-wide cluster kernel; the real-data runs print the variant of each launch
+Every chain launch of the flagship, imagenet32, ff and Emerging paths
+must go to the cluster kernel (:func:`cluster_only`), every one of W1's
+model to the wide cluster kernel; the real-data runs print the variant of each launch
 shape. Every phase prints one line or more and its
 seconds; the line
 before the last is the kernel summary as JSON, the last ``{"ok": true,
@@ -238,8 +259,9 @@ def raster_perm(c, h, w, order, torch, device=None):
 def library_chain(v, w_effs, orders, backward, torch):
     """The library call that computes the chain kernel's function: one
     ``torch.linalg.solve_triangular`` (cuBLAS trsm) per order on the dense
-    (CHW, CHW) operator in that order's raster order, with a row gather
-    between orders. Forward: ``y`` of the chain on ``v`` (B, C, H, W).
+    (CHW, CHW) operator in that order's raster order (``unitriangular``
+    unless its diagonal is not all ones: an Emerging kernel's), with a row
+    gather between orders. Forward: ``y`` of the chain on ``v`` (B, C, H, W).
     ``backward``: the chain's transpose applied to the cotangent ``v``,
     the orders reversed, each ``upper=True`` on the transposed operator:
     the function of the backward's launch. The operators and the column
@@ -257,14 +279,14 @@ def library_chain(v, w_effs, orders, backward, torch):
     inverse = [torch.argsort(p) for p in perms]
     gathers = ([perms[0]] + [inverse[i - 1][perms[i]]
                              for i in range(1, len(perms))] + [inverse[-1]])
-    mats = [m for _, m in steps]
+    mats = [(m, bool((torch.diagonal(m) == 1).all())) for _, m in steps]
     cols = v.detach().reshape(b, -1).T.contiguous()
 
     def call():
         z = cols[gathers[0]]
-        for m, g in zip(mats, gathers[1:]):
+        for (m, unit), g in zip(mats, gathers[1:]):
             z = torch.linalg.solve_triangular(m, z, upper=backward,
-                                              unitriangular=True)[g]
+                                              unitriangular=unit)[g]
         return z
     return call
 
@@ -281,16 +303,17 @@ def chain_bound(args, torch):
     at the HBM rate.
 
     Multiply-adds: at every block step, for each live output column, the
-    nonzero entries of its row of T off the diagonal (T is a permuted unit
-    triangle: the diagonal is a copy and the upper half is zero), and,
+    nonzero entries of its row of T but a diagonal 1 (T is a permuted
+    triangle: a unit diagonal is a copy, an Emerging kernel's is a
+    product, and the upper half is zero), and,
     after a scan's first block, of its row of G; each only over the live
     columns it multiplies (a padded tail column is always zero). Bytes: x
-    read and every phase output written once, and the nonzero entries of T
-    off the diagonal and of G read once."""
+    read and every phase output written once, and those entries of T and
+    the nonzero entries of G read once."""
     xb, t_all, g_all, dirs, kcw, pad_cw = args
     nb, b, rcw = xb.shape
-    t_nz = (t_all != 0) & ~torch.eye(rcw, dtype=torch.bool,
-                                     device=t_all.device)
+    t_nz = (t_all != 0) & ~(torch.eye(rcw, dtype=torch.bool,
+                                      device=t_all.device) & (t_all == 1))
     g_nz = g_all != 0
     full = torch.ones(rcw, dtype=torch.bool, device=t_all.device)
     tail = torch.arange(rcw, device=t_all.device) < rcw - pad_cw
@@ -376,15 +399,17 @@ def solve_operands(chw, orders, gen, dev, torch, b=BATCH, kernel=(3, 3)):
 
 
 def check_forward(cases, label, gen, dev, torch, b=BATCH, kernel=(3, 3),
-                  variant="cluster"):
+                  variant="cluster", operands=None):
     """The kernel the dispatch picks (``variant``) against its plain
-    version on each case's launch, to ``1e-5 * max(1, max|y|)``; returns
-    the largest error."""
+    version on each case's launch, to ``1e-5 * max(1, max|y|)``, on
+    ``operands`` (:func:`solve_operands` by default); returns the largest
+    error."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
+    operands = operands or solve_operands
     max_err = 0.0
     for chw, orders in cases:
-        args = fused_chain.chain_inputs(*solve_operands(
+        args = fused_chain.chain_inputs(*operands(
             chw, orders, gen, dev, torch, b, kernel), orders)
         if fused_chain.chain_variant(args[0].shape[2], args[4]) != variant:
             fail(f"{chw} {orders} does not dispatch to the {variant} kernel")
@@ -446,13 +471,16 @@ def check_backward(cases, label, gen, dev, torch, b=BATCH, kernel=(3, 3)):
 
 
 def time_rows(shapes, orders, backward, reps, rounds, label, gen, dev, card,
-              torch, b=BATCH, kernel=(3, 3), variant="cluster"):
+              torch, b=BATCH, kernel=(3, 3), variant="cluster",
+              operands=None):
     """The kernel, plain and library times of one launch at each shape,
-    with the bound (:func:`time_launch`); returns their means over the
-    shapes, which the path launches equally often."""
+    with the bound (:func:`time_launch`), on ``operands(chw, orders, gen,
+    dev, torch, b, kernel)`` (:func:`solve_operands` by default); returns
+    their means over the shapes, which the path launches equally often."""
+    operands = operands or solve_operands
     rows = []
     for chw in shapes:
-        x, ws = solve_operands(chw, orders, gen, dev, torch, b, kernel)
+        x, ws = operands(chw, orders, gen, dev, torch, b, kernel)
         t, (bound, bound_by, fma), lib_err = time_launch(
             x, ws, orders, backward, reps, rounds, torch, variant)
         rows.append((t["kernel"], t["streaming"], t["plain"], t["library"],
@@ -984,24 +1012,9 @@ def block_magnitudes(flow, noise, torch):
     layer's inverse. Returns [(layer type, max|z|)] in sampling order."""
     from inverse_flow_tpu_torch.layers import Flow
 
-    seen = []
-
-    def recorded(layer):
-        inverse = layer.inverse
-
-        def wrapper(*args, **kwargs):
-            z = inverse(*args, **kwargs)
-            seen.append((type(layer).__name__, z.abs().max().item()))
-            return z
-        return wrapper
-
     body = Flow(flow.base_distribution, flow.layers[1:])
-    with contextlib.ExitStack() as stack:
-        for layer in body.layers:
-            stack.enter_context(mock.patch.object(layer, "inverse",
-                                                  recorded(layer)))
-        body.sample(noise["base"].shape[0], noise=noise)
-    return seen
+    return [(name, z.abs().max().item())
+            for name, z in sample_states(body, noise, torch)]
 
 
 def flagship_sample(flow, gen, card, torch):
@@ -1812,6 +1825,453 @@ def phase_wide(dev, gen, card, torch):
             for bwd, n in ((False, launches[0]), (True, launches[1]))]
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the paper's comparison baselines
+# ---------------------------------------------------------------------------
+
+# the exact log p against the cheap one plus the dense correction, per
+# sample (float32 slogdets of 784- and 392-dim operators)
+EXACT_RTOL = 1e-4
+# exact_cnn_mnist's batch: 125 clusters of 8 rows against about 15
+# resident (phase 2 prints the count)
+CNN_BATCH = 1000
+EMERGING_SHAPES = [(1, 28, 28), (4, 14, 14)]
+
+
+def emerging_operands(chw, orders, gen, dev, torch, b=BATCH, kernel=(2, 2)):
+    """``b`` inputs (C, H, W) and one Emerging autoregressive kernel per
+    order (the centre tap lower triangular, ``layers/emerging.py``), its
+    diagonal drawn in [0.5, 2] with mixed signs, a non-unit triangle,
+    which the masked kernels never give the chain; the other taps of
+    :func:`solve_operands`' std 0.1 / sqrt(C), so that the solve stays
+    well conditioned (at the layer's init scale, 1 / (2C), one channel's
+    inverse can amplify round-off by 1e10)."""
+    from inverse_flow_tpu_torch.layers.emerging import square_ar_mask
+
+    c = chw[0]
+    x = torch.randn((b,) + chw, generator=gen, device=dev)
+    ws = []
+    for _ in orders:
+        w = 0.1 / math.sqrt(c) * torch.randn((c, c) + tuple(kernel),
+                                             generator=gen, device=dev)
+        d = 0.5 + 1.5 * torch.rand(c, generator=gen, device=dev)
+        sign = torch.randint(0, 2, (c,), generator=gen, device=dev) * 2 - 1
+        w[torch.arange(c), torch.arange(c), -1, -1] = d * sign
+        ws.append(w * square_ar_mask(c, *kernel, device=dev))
+    return x, ws
+
+
+def baseline(name, dev, torch, n_train, **config):
+    """The registry's experiment ``name`` on the card, as a user builds
+    it: its model from seed 0 and its config (``config`` overrides it;
+    image grids and recon plots off, metrics to ``chiprun_out/``), its
+    loaders (synthetic images where the dataset is absent), the train
+    split cut to its first ``n_train`` examples. Returns the Experiment
+    and its first train batch."""
+    from inverse_flow_tpu_torch.data import ArrayLoader
+    from inverse_flow_tpu_torch.experiments.registry import get_experiment
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    spec = get_experiment(name)
+    cfg = spec.config.replace(
+        save_images=False, plot_recon=False, seed=0,
+        metrics_path=os.path.join(HERE, "chiprun_out",
+                                  f"{name}_metrics.jsonl"), **config)
+    with warnings.catch_warnings(record=True):   # phase 5 printed it
+        warnings.simplefilter("always")
+        train, val, test = spec.load_data(batch_size=cfg.batch_size,
+                                          seed=cfg.seed)
+    train = ArrayLoader(train.data[:n_train], cfg.batch_size, shuffle=True,
+                        seed=cfg.seed)
+    flow = spec.build_model(device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    return Experiment(flow, train, val, test, cfg, device=dev), \
+        train.data[:cfg.batch_size]
+
+
+def train_baseline(label, exp, first, torch, launches_per_step=0,
+                   init_passes=0):
+    """``maybe_data_init(first)`` (a no-op when it ran) and one
+    ``train_epoch`` over the cut train split, the chain's launch counts
+    set to 0 just before and read just after (:func:`counted_epoch`: every
+    launch on the cluster kernel): every loss finite, and
+    ``launches_per_step`` chain launches a step forward and as many
+    backward, beside the data init's ``init_passes`` forward passes (2
+    through a Glow's blocks, 1 through a CNN or FC flow). Returns (losses,
+    the state after data init)."""
+    values, _, launches, bwd, init_state = counted_epoch(exp, first, torch)
+    steps = len(values)
+    fwd_need = launches_per_step * (init_passes + steps)
+    print(f"{label}: {exp.cfg.name}, data init + {steps} steps of "
+          f"{exp.cfg.batch_size}: losses "
+          f"{', '.join(f'{v:.4f}' for v in values)}; chain kernel launches "
+          f"{launches - bwd} forward + {bwd} backward", flush=True)
+    if not steps or not all(map(math.isfinite, values)):
+        fail(f"{label}: expected finite losses, got {values}")
+    if (launches - bwd, bwd) != (fwd_need, launches_per_step * steps):
+        fail(f"{label}: expected {fwd_need} + "
+             f"{launches_per_step * steps} chain launches, got "
+             f"{launches - bwd} + {bwd}")
+    return values, init_state
+
+
+def finite_sample(label, flow, gen, torch, what="Flow.sample"):
+    """A ``Flow.sample`` of 100 on the card, cheap and exact, with the
+    chain's launches counted; returns whether both are finite."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    out = []
+    for exact in (False, True):
+        fused_chain.reset_launches()
+        x = flow.sample(BATCH, gen, exact=exact)
+        torch.cuda.synchronize()
+        out.append((x, fused_chain.chain_phases.launches))
+    print(f"{label}: {what} of {BATCH}, cheap / exact inverses: values "
+          + " / ".join(f"{x.min().item():.0f}..{x.max().item():.0f}, "
+                       f"finite {bool(torch.isfinite(x).all())}, {n} chain "
+                       f"launches" for x, n in out), flush=True)
+    return all(bool(torch.isfinite(x).all()) and x.shape[0] == BATCH
+               for x, _ in out)
+
+
+def phase_snf(dev, gen, card, torch):
+    """``selfnorm_glow_mnist``, the slice's main path, at its full config
+    (L=2 x K=16 SelfNorm 1x1 steps, width 512, no activation, B=100,
+    recon weight 100, clamp 0.01, modified gradient): data init and 5
+    steps with the recon term (no chain launch); an eval of 2 batches
+    with the exact correction, and its time; the exact log p against the
+    cheap one plus the correction on one batch; on the data-initialised
+    weights ``Flow.sample`` cheap and exact and ``reconstruct(exact=True)``
+    (after the steps the registry's clamp of 0.01 leaves W with entries
+    of 0.01, whose inverse overflows float32 through 32 layers in any
+    implementation: printed, not checked); train ms/step, device busy and
+    launch calls per step."""
+    from inverse_flow_tpu_torch.layers import Flow
+
+    label = "snf"
+    exp, first = baseline("selfnorm_glow_mnist", dev, torch, 5 * BATCH,
+                          max_eval_ex=2 * BATCH)
+    flow = exp.flow
+    values, init_state = train_baseline(label, exp, first, torch)
+    print(f"{label}: recon loss of the last step {exp.last_recon.item():.4f} "
+          f"(weight {exp.recon_weight.item():.1f}, symmetric "
+          f"{exp.cfg.sym_recon_grad})", flush=True)
+
+    logpx = exp.eval_epoch(exp.val_loader)
+    corr_ms = ab_ms({"corr": lambda: flow.exact_ldj_correction(
+        exp.data_shape)}, reps=1, rounds=2, torch=torch)["corr"]
+    with torch.inference_mode():
+        corr = flow.exact_ldj_correction(exp.data_shape).item()
+    print(f"{label}: eval over 2 batches of {BATCH}: log p(x) {logpx:.4f}, "
+          f"BPD {exp.to_bpd(logpx):.4f}, exact correction {corr:.4f} (16 "
+          f"dense slogdets of 784^2 and 16 of 392^2, one batched slogdet a "
+          f"block: {corr_ms:.3f} ms) {card}", flush=True)
+    if not (math.isfinite(logpx) and math.isfinite(corr)):
+        fail("selfnorm_glow_mnist eval or its correction is not finite")
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    x = torch.as_tensor(first, device=dev)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        cheap = body(x + u)[1]
+        exact = body(x + u, exact=True)[1]
+    rel = ((exact - (cheap + corr)).abs() / exact.abs()).max().item()
+    print(f"{label}: exact log p(x) vs cheap + correction on one batch: max "
+          f"rel err {rel:.3e} (tol {EXACT_RTOL:.0e})", flush=True)
+    if not (torch.isfinite(exact).all() and rel <= EXACT_RTOL):
+        fail("the exact log p(x) is not the cheap one plus the correction")
+
+    trained = copy.deepcopy(flow.state_dict())
+    flow.load_state_dict(init_state)
+    if not finite_sample(label, flow, gen, torch,
+                         "Flow.sample on the data-initialised weights"):
+        fail("selfnorm_glow_mnist samples are not finite")
+    rec = flow.reconstruct(x, gen, exact=True)
+    print(f"{label}: reconstruct(exact=True) on the data-initialised "
+          f"weights: max |x - x_rec| {(rec - x).abs().max().item():.3e}, "
+          f"{(rec == x).float().mean().item():.4f} of the pixels equal "
+          f"(the SplitPrior's half is drawn anew, as in JAX)", flush=True)
+    flow.load_state_dict(trained)
+    finite_sample(label, flow, gen, torch,
+                  f"Flow.sample after {len(values)} steps under clamp "
+                  f"{exp.cfg.weight_clamp}")
+
+    def step():
+        exp.train_step(x)
+
+    t = ab_ms({"step": step}, reps=2, rounds=3, torch=torch)
+    busy, calls = device_profile("train_snf", "step", step, 1, card, torch)
+    print(f"{label}: train {t['step']:.3f} ms/step of {BATCH} (CUDA events, "
+          f"median of 3 turns of 2); device busy {busy:.3f} ms and {calls:.0f}"
+          f" kernel launch calls per step {card}", flush=True)
+
+
+def phase_geco(dev, torch):
+    """``geco_selfnorm_glow_mnist``: data init and 3 steps, the GECO
+    weight after each; every loss finite, the weight finite and rising."""
+    label = "geco"
+    exp, first = baseline("geco_selfnorm_glow_mnist", dev, torch,
+                          3 * BATCH)
+    exp.maybe_data_init(first)
+    losses, weights = [], []
+    for xb in exp.train_loader:
+        losses.append(exp.train_step(exp._prep_batch(xb)).item())
+        weights.append(exp.recon_weight.item())
+    print(f"{label}: {len(losses)} steps: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; recon_weight after "
+          f"each {', '.join(f'{w:.9f}' for w in weights)} (lr "
+          f"{exp.cfg.recon_loss_lr}, alpha {exp.cfg.recon_alpha}; recon_ema "
+          f"{exp.recon_ema.item():.6f})", flush=True)
+    if not (all(map(math.isfinite, losses + weights))
+            and weights[-1] > 1.0):
+        fail("GECO: a loss or the weight is not finite, or the weight did "
+             "not move")
+
+
+def phase_snf_imagenet(dev, card, torch):
+    """``selfnorm_glow_imagenet`` at its full config (L=3 x K=48 SelfNorm
+    1x1, width 512, B=100) on synthetic (3, 32, 32): data init and one
+    step; the exact correction, 48 dense operators of 3072^2 floats at
+    the first level (1.8 GB), timed and its peak memory read."""
+    label = "snf_imagenet32"
+    exp, first = baseline("selfnorm_glow_imagenet", dev, torch, BATCH)
+    train_baseline(label, exp, first, torch)
+    times = []
+    for _ in range(2):                  # the first call loads cuSOLVER
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.inference_mode():
+            corr = exp.flow.exact_ldj_correction(exp.data_shape)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    print(f"{label}: exact correction {corr.item():.4f}: {times[0]:.3f} ms "
+          f"first call, {times[1]:.3f} ms second (3 x 48 dense slogdets of "
+          f"3072^2, 1536^2, 768^2), peak memory above the model's "
+          f"{peak_gb:.3f} GB {card}", flush=True)
+    if not math.isfinite(corr.item()):
+        fail("selfnorm_glow_imagenet's exact correction is not finite")
+
+
+def phase_conv1x1(dev, gen, torch):
+    """``conv1x1_glow_mnist`` (no chain) and ``if_conv1x1_glow_mnist``
+    (``InvFlow`` TL 3x3: 32 solves a pass on the cluster kernel): one
+    ``Flow.sample`` on the data-initialised weights, then 3 steps each."""
+    for name, per_step in (("conv1x1_glow_mnist", 0),
+                           ("if_conv1x1_glow_mnist", 32)):
+        exp, first = baseline(name, dev, torch, 3 * BATCH)
+        exp.maybe_data_init(first)
+        if not finite_sample(name, exp.flow, gen, torch,
+                             "Flow.sample on the data-initialised weights"):
+            fail(f"{name} samples are not finite")
+        train_baseline(name, exp, first, torch, per_step)
+
+
+def phase_emerging(dev, gen, card, torch):
+    """``emerging_cnn_mnist`` at its full config (2 blocks x 4 Emerging
+    layers, RQ spline 10 bins, tail 70, B=100): the chain kernel on
+    Emerging operands (a non-unit diagonal in [0.5, 2]) at the two solve
+    shapes against its plain version, timed beside the streaming kernel,
+    the plain version, the library call and the bound; data init and 3
+    steps (the forward is the masked conv: no launch); ``Flow.sample`` of
+    100 with its launches counted (16: 8 layers x 2 AR convs, all
+    ``cluster``) and the sample against the plain chain on the same
+    draws; each AR conv's round trip ``inverse(forward(x))`` on its input
+    in a forward pass, by the kernel and the plain chain, the kernel held
+    to 1e-4 wherever the plain chain meets it. Returns the summary
+    entry."""
+    from inverse_flow_tpu_torch.layers import (Flow,
+                                               SquareAutoRegressiveConv2d)
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    label = "emerging"
+    on = dict(gen=gen, dev=dev, torch=torch, kernel=(2, 2),
+              operands=emerging_operands)
+    err = check_forward([(chw, ("TL",)) for chw in EMERGING_SHAPES],
+                        f"{label}: kernel", **on)
+    row = time_rows(EMERGING_SHAPES, ("TL",), False, 100, 4, label,
+                    card=card, **on)
+
+    exp, first = baseline("emerging_cnn_mnist", dev, torch, 3 * BATCH)
+    flow = exp.flow
+    train_baseline(label, exp, first, torch)
+
+    fused_chain.reset_launches()
+    x = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} Flow.sample", launches)
+    print(f"{label}: Flow.sample of {BATCH}: {launches} chain kernel launches "
+          f"(8 Emerging layers x 2 AR convs), values "
+          f"{x.min().item():.0f}..{x.max().item():.0f}", flush=True)
+    if launches != 16 or not torch.isfinite(x).all():
+        fail(f"expected 16 chain launches and finite Emerging samples, got "
+             f"{launches}")
+
+    noise = sample_noise(flow, BATCH, gen, dev, torch)
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    states = sample_states(body, noise, torch)
+    with plain_chain(fused_chain):
+        states_ref = sample_states(body, noise, torch)
+    y, y_ref = states[-1][1], states_ref[-1][1]
+    rel = ((y - y_ref).double().norm() / y_ref.double().norm()).item()
+    saturated = ((y_ref <= 0) | (y_ref >= 256)).float().mean().item()
+    print(f"{label}: samples before the floor, kernel vs plain chain on the "
+          f"same draws: |y - y_plain| / |y_plain| {rel:.3e} (tol "
+          f"{SAMPLE_RTOL:.0e}); max abs diff "
+          f"{(y - y_ref).abs().max().item():.3e}; {saturated:.4f} of the "
+          f"pixels at the sigmoid's ends (0 or 256); after each Emerging "
+          f"layer's inverse, in sampling order: " + ", ".join(
+              f"{((a - b).double().norm() / b.double().norm()).item():.2e} "
+              f"(max|z| {b.abs().max().item():.3g})"
+              for (name, a), (_, b) in zip(states, states_ref)
+              if name == "Emerging"), flush=True)
+    if not (torch.isfinite(y).all() and rel <= SAMPLE_RTOL):
+        fail("Emerging samples through the kernel disagree with the plain "
+             "chain")
+
+    # round trips: each AR conv on its input in a forward pass of a batch
+    trips = []
+    with torch.inference_mode():
+        h = torch.as_tensor(first, device=dev)
+        h = h + torch.rand(h.shape, generator=gen, device=dev)
+        for layer in body.layers:
+            v = h
+            for t in getattr(layer, "t", ()):
+                if isinstance(t, SquareAutoRegressiveConv2d):
+                    z = t(v)[0]
+                    with plain_chain(fused_chain):
+                        plain = t.inverse(z)
+                    trips.append(tuple(((back - v).norm() / v.norm()).item()
+                                       for back in (t.inverse(z), plain)))
+                v = t(v)[0]
+            h = layer(h)[0]
+    stable = [(k, p) for k, p in trips if p <= SAMPLE_RTOL]
+    print(f"{label}: round trips |inverse(forward(x)) - x| / |x| of the 16 AR "
+          f"convs, kernel (plain chain): " + ", ".join(
+              f"{k:.2e} ({p:.2e})" for k, p in trips)
+          + f"; {len(stable)} of 16 within {SAMPLE_RTOL:.0e} on the plain "
+          f"chain: the others' inverses amplify float32 round-off past it "
+          f"in any implementation (the reference init's diagonal 1 + "
+          f"N(0, 1/4) comes near 0 at one channel)", flush=True)
+    if not all(k <= SAMPLE_RTOL for k, _ in stable):
+        fail("an AR conv's inverse on the kernel does not undo its forward "
+             "where the plain chain does")
+    return dict(row, max_abs_err=err, launches=launches)
+
+
+def sample_states(body, noise, torch):
+    """``body.sample`` on ``noise`` with the output of every layer's
+    inverse kept: [(layer type, z)] in sampling order."""
+    seen = []
+
+    def recorded(layer):
+        inverse = layer.inverse
+
+        def wrapper(*args, **kwargs):
+            z = inverse(*args, **kwargs)
+            seen.append((type(layer).__name__, z))
+            return z
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for layer in body.layers:
+            stack.enter_context(mock.patch.object(layer, "inverse",
+                                                  recorded(layer)))
+        body.sample(noise["base"].shape[0], noise=noise)
+    return seen
+
+
+def counted_launches(fn, torch):
+    """``fn()`` with the chain's launch counts set to 0 just before and
+    read just after: (launches, by variant)."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    fused_chain.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return (fused_chain.chain_phases.launches,
+            dict(fused_chain.chain_phases.launches_by_variant))
+
+
+def phase_cnn(dev, gen, card, torch, _build):
+    """``if_cnn_mnist`` (B=100: 48 ``InvFlowNoPad`` 2x2 layers, 2 steps, 48
+    forward and 48 backward launches a step) and ``exact_cnn_mnist`` at
+    its B=1000 (9 layers 3x3; 125 clusters of 8 rows): the kernel forward
+    and backward against the plain version at B=1000 at its three solve
+    shapes (the third, (16, 7, 7), is a 560-wide block: the wide cluster
+    kernel), the B=1000 forward at (1, 28, 28) timed beside the plain
+    version, the library call and the bound; data init and one step with
+    9 + 9 launches, its step-1 gradients against the plain chain. Returns
+    the summary entry (launches: the step's)."""
+    label = "cnn"
+    exp, first = baseline("if_cnn_mnist", dev, torch, 2 * BATCH)
+    train_baseline(label, exp, first, torch, 48, init_passes=1)
+
+    label = "cnn_b1000"
+    active = _build.cluster_occupancy(dev.index, CNN_BATCH, 392, 56)
+    print(f"{label}: cluster kernel at RCW=392 KCW=56 B={CNN_BATCH}: "
+          f"{active} clusters resident at once, "
+          f"{-(-CNN_BATCH // 8)} needed", flush=True)
+    on = dict(gen=gen, dev=dev, torch=torch, b=CNN_BATCH, kernel=(3, 3))
+    cases = [((1, 28, 28), ("TL",)), ((4, 14, 14), ("TL",))]
+    err = max(check_forward(cases, f"{label}: kernel", **on),
+              check_forward([((16, 7, 7), ("TL",))], f"{label}: kernel",
+                            variant="cluster_wide", **on))
+    check_backward(cases + [((16, 7, 7), ("TL",))], f"{label}: backward",
+                   **on)
+    row = time_rows([(1, 28, 28)], ("TL",), False, 20, 4, label, card=card,
+                    **on)
+
+    exp, first = baseline("exact_cnn_mnist", dev, torch, CNN_BATCH)
+    exp.maybe_data_init(first)
+    xb = exp._prep_batch(first)
+    init_state = copy.deepcopy(exp.flow.state_dict())
+    losses = []
+    launches, by = counted_launches(
+        lambda: losses.append(exp.train_step(xb).item()), torch)
+    print(f"{label}: {exp.cfg.name}, one step of {CNN_BATCH}: loss "
+          f"{losses[0]:.4f}; chain kernel launches {launches} (9 forward + 9 "
+          f"backward), by variant {by}", flush=True)
+    if launches != 18 or not math.isfinite(losses[0]):
+        fail(f"exact_cnn_mnist: {launches} chain launches, loss {losses}")
+    exp.flow.load_state_dict(init_state)
+    check_grads(label, exp.flow, first, gen, dev, torch)
+    return dict(row, max_abs_err=err, launches=launches,
+                launches_by_variant=by)
+
+
+def phase_baselines(dev, gen, card, torch, _build):
+    """Phase 12: the paper's comparison baselines from the registry, at
+    their full configs with weights from seed 0 on synthetic MNIST and
+    ImageNet32 (the embedded real digits for ``real_digits_fc``): SelfNorm
+    (:func:`phase_snf`, :func:`phase_geco`, :func:`phase_snf_imagenet`),
+    Glow's 1x1 conv (:func:`phase_conv1x1`), Emerging, whose inverse runs
+    on the chain kernel (:func:`phase_emerging`), the CNN flows
+    (:func:`phase_cnn`) and two steps each of the other CNN and FC flows.
+    Returns the summary entries of the Emerging launch and the B=1000
+    launch."""
+    t0 = time.perf_counter()
+    phase_snf(dev, gen, card, torch)
+    phase_geco(dev, torch)
+    phase_snf_imagenet(dev, card, torch)
+    phase_conv1x1(dev, gen, torch)
+    emerging = phase_emerging(dev, gen, card, torch)
+    cnn = phase_cnn(dev, gen, card, torch, _build)
+    for name, per_step in (("selfnorm_cnn_mnist", 0), ("selfnorm_fc_mnist", 0),
+                           ("exact_fc_mnist", 2), ("real_digits_fc", 2)):
+        exp, first = baseline(name, dev, torch, 2 * BATCH)
+        train_baseline(name, exp, first, torch, per_step, init_passes=1)
+    print(f"baselines: phase 12 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return emerging, cnn
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -2038,8 +2498,13 @@ def main():
     wide_rows = phase_wide(dev, gen, card, torch)
     phase_done(11)
 
-    print(f"smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 12. the comparison baselines -----------------------------------
+    emerging_row, cnn_row = phase_baselines(dev, gen, card, torch, _build)
+    phase_done(12)
+
+    print(f"smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    cnn_by_variant = cnn_row.pop("launches_by_variant")
 
     def entry(name, launches, variant="cluster", **row):
         # every main-path launch went to the cluster kernel (cluster_only),
@@ -2070,6 +2535,14 @@ def main():
         entry("chain_phases:wide", variant="cluster_wide", **wide_rows[0]),
         entry("chain_phases:wide_backward", variant="cluster_wide",
               **wide_rows[1]),
+        # phase 12: the Emerging AR convs' inverse (a non-unit diagonal) at
+        # its two shapes, launches: one emerging_cnn_mnist Flow.sample of
+        # 100; exact_cnn_mnist's B=1000 forward at (1, 28, 28), launches:
+        # its one train step, 9 forward and 9 backward (a third of them on
+        # the wide kernel, at (16, 7, 7)); the counts set to 0 just before
+        entry("chain_phases:emerging", **emerging_row),
+        dict(entry("chain_phases:cnn_b1000", **cnn_row),
+             launches_by_variant=cnn_by_variant),
         # launches: one imagenet32 Flow.sample of 100 (phase 10, the
         # counts set to 0 just before)
         dict(name="slr_inverse", route="cuda",

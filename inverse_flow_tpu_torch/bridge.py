@@ -7,13 +7,15 @@ bridge flattens each layer's pytree into dotted names and copies leaf by
 leaf (:func:`params_from_jax`), and rebuilds the pytree from the dotted
 names, an integer key making a list (:func:`params_to_jax`). Nested
 names such as an ``InvFlowUnit`` step's ``steps.1.convs.0.w`` cross the
-same way.
+same way; a list takes its length from its ``ModuleList``, so an entry
+without parameters keeps its place (Emerging's last flip).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree, prefix=""):
@@ -50,7 +52,11 @@ def params_from_jax(flow, jax_params):
     return flow
 
 
-def _unflatten(named):
+def _unflatten(named, lengths):
+    """The pytree of the dotted ``named`` leaves; a node whose keys are
+    all integers is a list, of the length ``lengths`` gives for its dotted
+    path (its ``ModuleList``'s), a missing entry (a layer without
+    parameters: a flip, an SLR step) given as ``{}``."""
     tree = {}
     for name, value in named:
         node, keys = tree, name.split(".")
@@ -58,22 +64,23 @@ def _unflatten(named):
             node = node.setdefault(k, {})
         node[keys[-1]] = value
 
-    def listify(node):
+    def listify(node, path):
         if not isinstance(node, dict):
             return node
-        node = {k: listify(v) for k, v in node.items()}
+        node = {k: listify(v, f"{path}{k}.") for k, v in node.items()}
         if node and all(k.isdigit() for k in node):
-            # a list entry without parameters (an SLR step) is {}
-            return [node.get(str(i), {})
-                    for i in range(max(map(int, node)) + 1)]
+            n = lengths.get(path[:-1], max(map(int, node)) + 1)
+            return [node.get(str(i), {}) for i in range(n)]
         return node
-    return listify(tree)
+    return listify(tree, "")
 
 
 @torch.no_grad()
 def params_to_jax(flow):
     """The JAX params of ``flow``: a list with one pytree per layer, leaves
     as float32 numpy arrays (a layer without parameters gives ``{}``)."""
-    return [_unflatten((n, p.detach().cpu().numpy())
-                       for n, p in layer.named_parameters())
+    return [_unflatten(((n, p.detach().cpu().numpy())
+                        for n, p in layer.named_parameters()),
+                       {n: len(m) for n, m in layer.named_modules()
+                        if isinstance(m, (nn.ModuleList, nn.ParameterList))})
             for layer in flow.layers]

@@ -90,16 +90,30 @@ def _smoke_data_size(spec):
 
 
 def _smoke_model(spec, device, generator):
-    """A miniature model of the same family as the experiment: the JAX
-    CLI's rule for the step kinds the port builds (``ff`` for the FInC
-    Flow names, else ``inv_conv_no_pad``)."""
-    from .models.glow import build_glow
+    """A miniature model of the same family as the experiment, by the JAX
+    CLI's rule: the step kind from the name (SelfNorm, Conv1x1, FincFlow,
+    Emerging, else ``inv_conv_no_pad``), an FC or CNN stack for the
+    ``fc`` and ``cnn`` names, else a Glow."""
+    from .models.glow import build_cnn_flow, build_fc_flow, build_glow
     name = spec.name
-    kind = "ff" if name.startswith("ff") or "_ff_" in name \
-        else "inv_conv_no_pad"
-    return build_glow(_smoke_data_size(spec), step_kind=kind, num_blocks=2,
-                      block_size=2, coupling_width=16, generator=generator,
-                      device=device)
+    size = _smoke_data_size(spec)
+    init = dict(generator=generator, device=device)
+    kind_map = {"snf": "snf", "selfnorm": "snf", "conv1x1": "conv1x1",
+                "ff": "ff", "emerging": "emerging"}
+    kind = "inv_conv_no_pad"
+    for key, k in kind_map.items():
+        if name.startswith(key) or f"_{key}_" in name:
+            kind = k
+            break
+    if "fc" in name.split("_"):
+        return build_fc_flow(size, num_layers=2,
+                             kind="snf_fc" if kind == "snf" else kind,
+                             **init)
+    if "cnn" in name.split("_"):
+        return build_cnn_flow(size, step_kind="snf_cnn" if kind == "snf"
+                              else kind, num_blocks=2, block_size=2, **init)
+    return build_glow(size, step_kind=kind, num_blocks=2, block_size=2,
+                      coupling_width=16, **init)
 
 
 def _j(v):

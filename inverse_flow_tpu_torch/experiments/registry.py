@@ -2,7 +2,10 @@
 
 The entries of ``inverse_flow_tpu/experiments/registry.py`` that the port
 builds, under the same names and with the same ``ExperimentConfig``s (a
-copy here: the port imports nothing of the JAX package). ``build_model``
+copy here: the port imports nothing of the JAX package): the flagship
+and its FincFlow sibling, the ImageNet32 Glow, the real-data runs, and
+the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, the CNN
+and FC flows). ``build_model``
 takes ``device`` (the CUDA card by default) and ``generator``; the other
 JAX names raise, naming the ROADMAP item that ports them.
 """
@@ -13,7 +16,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..data import digits, imagenet, mnist, patches
-from ..models.glow import build_glow
+from ..models.glow import build_cnn_flow, build_fc_flow, build_glow
 from ..train.config import ExperimentConfig
 
 
@@ -29,16 +32,9 @@ EXPERIMENTS = {}
 
 # the JAX registry's other names, by the ROADMAP item that ports them
 NOT_PORTED = {
-    **dict.fromkeys(("exact_fc_mnist", "real_digits_fc", "if_cnn_mnist",
-                     "if_exact_cnn_mnist", "exact_cnn_mnist",
-                     "if_conv1x1_glow_mnist", "if_glow_cifar",
-                     "ff_glow_cifar"), "1.4"),
-    **dict.fromkeys(("selfnorm_fc_mnist", "selfnorm_cnn_mnist",
-                     "emerging_cnn_mnist", "exponential_cnn_mnist",
-                     "selfnorm_glow_mnist", "geco_selfnorm_glow_mnist",
-                     "conv1x1_glow_mnist", "selfnorm_glow_cifar",
-                     "conv1x1_glow_cifar", "selfnorm_glow_imagenet",
-                     "conv1x1_glow_imagenet"), "1.5"),
+    **dict.fromkeys(("if_glow_cifar", "ff_glow_cifar", "selfnorm_glow_cifar",
+                     "conv1x1_glow_cifar"), "1.4a"),
+    **dict.fromkeys(("exponential_cnn_mnist",), "1.5a"),
     **dict.fromkeys(("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"),
                     "1.7"),
     **dict.fromkeys(("if_timescaling", "if_jacobi_timescaling",
@@ -129,3 +125,163 @@ _register(
                      epochs=30, warmup_epochs=2, modified_grad=True,
                      add_recon_grad=False, recon_loss_weight=0.0,
                      scheduler_name="None", eval_train=False))
+
+# ---------------------------------------------------------------------------
+# FC MNIST (JAX registry.py:52-73)
+# ---------------------------------------------------------------------------
+_register(
+    "exact_fc_mnist",
+    lambda **kw: build_fc_flow(MNIST, num_layers=2, kind="inv_conv_no_pad",
+                               activation="Spline", tail_bound=10.0, **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L IF FC Exact MNIST", lr=1e-4, batch_size=100,
+                     modified_grad=False, add_recon_grad=False,
+                     warmup_epochs=2, recon_loss_weight=0.0,
+                     sample_true_inv=False, scheduler_name="None"))
+
+_register(
+    "selfnorm_fc_mnist",
+    lambda **kw: build_fc_flow(MNIST, num_layers=2, kind="snf_fc",
+                               activation="Spline", tail_bound=10.0, **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L SNF FC MNIST", lr=1e-4, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     recon_loss_weight=1.0, scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# CNN MNIST (JAX registry.py:74-124)
+# ---------------------------------------------------------------------------
+_register(
+    "if_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="inv_conv_no_pad",
+                                num_blocks=3, block_size=16,
+                                activation="Spline", n_bins=10,
+                                tail_bound=30.0, kernel=(2, 2), **kw),
+    mnist.load_data,
+    ExperimentConfig(name="cnn_IF_Spline MNIST", lr=1e-5, batch_size=100,
+                     epochs=100, modified_grad=True, add_recon_grad=False,
+                     recon_loss_weight=0.0, weight_clamp=0.01,
+                     warmup_epochs=2, scheduler_name="None"))
+
+_register(
+    "if_exact_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="inv_conv_no_pad",
+                                num_blocks=3, block_size=3,
+                                activation="Spline", n_bins=10,
+                                tail_bound=30.0, kernel=(2, 2), **kw),
+    mnist.load_data,
+    ExperimentConfig(name="IF exact cnn MNIST", lr=1e-5, batch_size=100,
+                     epochs=100, modified_grad=False, add_recon_grad=False,
+                     weight_clamp=0.01, grad_clip_norm=1.0,
+                     scheduler_name="None"))
+
+_register(
+    "exact_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="inv_conv_no_pad",
+                                num_blocks=3, block_size=3,
+                                activation="Spline", kernel=(3, 3), **kw),
+    mnist.load_data,
+    ExperimentConfig(name="9L Exact CNN MNIST", lr=1e-4, batch_size=1000,
+                     modified_grad=False, add_recon_grad=False,
+                     scheduler_name="None"))
+
+_register(
+    "selfnorm_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="snf_cnn", num_blocks=3,
+                                block_size=3, activation="Spline", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="9L SNF CNN MNIST", lr=1e-3, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     recon_loss_weight=1.0, scheduler_name="None"))
+
+_register(
+    "emerging_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="emerging", num_blocks=2,
+                                block_size=4, activation="Spline",
+                                n_bins=10, tail_bound=70.0, **kw),
+    mnist.load_data,
+    ExperimentConfig(name="9L Emerging Spline MNIST", lr=1e-3,
+                     batch_size=100, modified_grad=False,
+                     add_recon_grad=False, scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# Glow MNIST baselines (JAX registry.py:155-196)
+# ---------------------------------------------------------------------------
+_register(
+    "selfnorm_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="snf", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L-16K SNF Glow MNIST", lr=1e-3, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     recon_loss_weight=100.0, weight_clamp=0.01,
+                     scheduler_name="None"))
+
+_register(
+    "geco_selfnorm_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="snf", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="GECO SNF Glow MNIST", lr=1e-3, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     recon_loss_weight=1.0, recon_loss_lr=1e-3,
+                     scheduler_name="None"))
+
+_register(
+    "conv1x1_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="conv1x1", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="2L-16K Conv1x1 Glow MNIST", lr=1e-3,
+                     batch_size=100, modified_grad=False,
+                     add_recon_grad=False, weight_clamp=0.01,
+                     scheduler_name="None"))
+
+_register(
+    "if_conv1x1_glow_mnist",
+    lambda **kw: build_glow(MNIST, step_kind="inv_conv", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="Spline", **kw),
+    mnist.load_data,
+    ExperimentConfig(name="IF+Conv1x1 Glow MNIST", lr=1e-5, batch_size=100,
+                     modified_grad=True, add_recon_grad=False,
+                     scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# ImageNet32 baselines (JAX registry.py:268-287)
+# ---------------------------------------------------------------------------
+_register(
+    "selfnorm_glow_imagenet",
+    lambda **kw: build_glow(IMAGENET32, step_kind="snf", num_blocks=3,
+                            block_size=48, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    lambda **kw: imagenet.load_data(size=32, **kw),
+    ExperimentConfig(name="SNF Glow ImageNet32", lr=1e-3, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     scheduler_name="None"))
+
+_register(
+    "conv1x1_glow_imagenet",
+    lambda **kw: build_glow(IMAGENET32, step_kind="conv1x1", num_blocks=3,
+                            block_size=48, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    lambda **kw: imagenet.load_data(size=32, **kw),
+    ExperimentConfig(name="Conv1x1 Glow ImageNet32", lr=1e-3,
+                     batch_size=100, modified_grad=False,
+                     add_recon_grad=False, scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# FC on the embedded real digits (JAX registry.py:381-389)
+# ---------------------------------------------------------------------------
+_register(
+    "real_digits_fc",
+    lambda **kw: build_fc_flow(DIGITS, num_layers=2, kind="inv_conv_no_pad",
+                               activation="Spline", tail_bound=10.0, **kw),
+    digits.load_data,
+    ExperimentConfig(name="2L IF FC RealDigits", lr=1e-4, batch_size=100,
+                     modified_grad=False, add_recon_grad=False,
+                     warmup_epochs=2, recon_loss_weight=0.0,
+                     scheduler_name="None"))

@@ -15,6 +15,16 @@ whose parameters carry the names of the JAX params pytree:
     ``forward_with``; a layer without one raises ``NotImplementedError``.
   * ``data_init_with(p, x)``: data-dependent initialisation, written in
     place into ``p`` (ActNorm); a no-op by default.
+  * ``exact_forward_with(p, x)`` and ``exact_inverse_with(p, z)``: the
+    exact-logdet forward and the exact inverse (SelfNorm's dense slogdet
+    and solve); the cheap pair by default. ``has_exact_path`` says whether
+    a layer's differ.
+  * ``exact_ldj_correction_with(p, in_shape)``: exact minus cheap ldj for
+    one sample, from the parameters alone (a 0-d zero by default), so
+    that eval computes the dense slogdets once per epoch.
+  * ``recon_loss_with(p, x, sym, only_R)``: the layer-local reconstruction
+    loss, (B,) (zeros by default; SelfNorm's when ``has_recon_loss``).
+  * ``out_shape(shape)``: the output shape (no batch) for an input shape.
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ class FlowLayer(nn.Module):
 
     #: marks layers of the preprocessing group
     is_preprocessing: bool = False
-    #: layers whose reconstruction loss joins the training loss (none
-    #: ported yet: ``Experiment.train_step`` raises on one)
+    #: layers whose cheap-path gradient is modified and whose exact path
+    #: differs (SelfNorm)
+    has_modified_grad: bool = False
+    #: layers whose reconstruction loss joins the training loss
     has_recon_loss: bool = False
 
     def own_params(self):
@@ -66,3 +78,47 @@ class FlowLayer(nn.Module):
 
     def data_init(self, x):
         self.data_init_with(self.own_params(), x)
+
+    def out_shape(self, shape):
+        """The output shape (no batch dim) for input ``shape``."""
+        return tuple(shape)
+
+    # --- exact paths and the reconstruction loss -------------------------
+    def exact_forward_with(self, p, x):
+        return self.forward_with(p, x)
+
+    def exact_inverse_with(self, p, z):
+        return self.inverse_with(p, z)
+
+    def exact_forward(self, x):
+        return self.exact_forward_with(self.own_params(), x)
+
+    def exact_inverse(self, z):
+        return self.exact_inverse_with(self.own_params(), z)
+
+    @property
+    def has_exact_path(self):
+        """True when ``exact_forward_with``/``exact_inverse_with`` differ
+        from the cheap pair: the gate of ``Flow.forward(exact=True)``."""
+        cls = type(self)
+        return (self.has_modified_grad
+                or cls.exact_forward_with is not FlowLayer.exact_forward_with
+                or cls.exact_inverse_with is not FlowLayer.exact_inverse_with)
+
+    def exact_ldj_correction_with(self, p, in_shape):
+        """Exact minus cheap ldj for one sample of shape ``in_shape``; 0."""
+        del in_shape
+        device = next(iter(p.values())).device if p else None
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    def recon_loss_with(self, p, x, sym=False, only_R=False):
+        """Layer-local reconstruction loss, (B,); zeros by default."""
+        del p, sym, only_R
+        return zeros_ldj(x)
+
+
+def sub_params(p, prefix):
+    """The entries of ``p`` under ``prefix`` (``"t.1"``), with the prefix
+    and its dot taken off: a child module's parameter dict."""
+    head = prefix + "."
+    return {k[len(head):]: v for k, v in p.items() if k.startswith(head)}

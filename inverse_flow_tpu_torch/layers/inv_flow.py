@@ -39,7 +39,8 @@ def _xavier_noise(shape, generator, device, gain=0.01):
 class InvFlow(FlowLayer):
     """forward: ``y = T^{-1} x``, the inverse of the masked conv ``T``;
     inverse: ``x = T y``, the masked conv itself (a plain conv, as in the
-    JAX package). With ``groups`` > 1 the weight is (C, C/groups, KH, KW),
+    JAX package). ``'exact'`` and ``'fused'`` are the same function here,
+    the chain solve. With ``groups`` > 1 the weight is (C, C/groups, KH, KW),
     masked per group, and the solve runs on its dense block-diagonal
     expansion."""
 
@@ -49,9 +50,11 @@ class InvFlow(FlowLayer):
         super().__init__()
         if order not in ORDER_FLAGS:
             raise ValueError(f"unknown order: {order}")
-        if solver != "exact":
+        if solver in ("auto", "jacobi"):
             raise NotImplementedError(
-                f"InvFlow: solver {solver!r} is not ported; use 'exact'")
+                f"InvFlow: solver {solver!r} is not ported (ROADMAP 1.6)")
+        if solver not in ("exact", "fused"):
+            raise ValueError(f"unknown solver: {solver}")
         if channels % groups:
             raise ValueError(f"{channels} channels in {groups} groups")
         self.kernel_size = tuple(kernel_size)

@@ -1,11 +1,12 @@
 """Flow composition: layers, then the base distribution.
 
 Port of ``inverse_flow_tpu/layers/sequential.py:Flow`` (forward,
-``forward_verbose``, ``cheap_log_prob``, ``data_init``, ``sample``,
-``reconstruct``). The ldj of
-each layer is added once. No layer of the port has an exact-logdet path or
-an exact inverse that differs from its forward or inverse, so the cheap
-log-prob is the exact one and there is one kind of sample.
+``forward_verbose``, ``cheap_log_prob``, ``exact_ldj_correction``,
+``recon_loss``, ``data_init``, ``sample``, ``reconstruct``). The ldj of
+each layer is added once. ``exact=True`` takes each layer's exact path
+where it has one (SelfNorm's dense slogdet and solve); the exact log-prob
+is the cheap one plus :meth:`Flow.exact_ldj_correction`, which depends on
+the parameters alone.
 """
 
 from __future__ import annotations
@@ -26,12 +27,15 @@ class Flow(nn.Module):
         self.base_distribution = base_distribution
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, exact=False):
         """Run all layers; returns (z, log_px), log_px including the base
-        log-prob."""
+        log-prob. ``exact``: each layer's exact path where it has one."""
         logdet = torch.zeros((x.shape[0],), device=x.device)
         for layer in self.layers:
-            x, ldj = layer(x, generator)
+            if exact and layer.has_exact_path:
+                x, ldj = layer.exact_forward(x)
+            else:
+                x, ldj = layer(x, generator)
             logdet = logdet + ldj
         return x, self.base_distribution.log_prob(x) + logdet
 
@@ -50,6 +54,37 @@ class Flow(nn.Module):
     def cheap_log_prob(self, x, generator=None):
         return self.forward(x, generator)[1]
 
+    @torch.no_grad()
+    def exact_ldj_correction(self, input_shape):
+        """The 0-d ``exact log p(x) - cheap log p(x)`` of every sample of
+        shape ``input_shape`` (no batch dim): the layers' corrections,
+        each at its input's shape. It depends on the parameters alone, so
+        eval computes it once per epoch."""
+        corr = torch.zeros((), device=self._device())
+        shape = tuple(input_shape)
+        for layer in self.layers:
+            corr = corr + layer.exact_ldj_correction_with(
+                layer.own_params(), shape)
+            shape = layer.out_shape(shape)
+        return corr
+
+    def recon_loss(self, x, generator=None, sym=False, only_R=False):
+        """The layers' reconstruction losses along the forward pass, (B,).
+        Each layer's sees a detached input, so its gradient reaches only
+        that layer's own weights; the forward between them runs without a
+        graph. ``generator`` draws the dequantization noise: give it the
+        state of the training forward's, as the JAX loss gives both the
+        same key."""
+        total = torch.zeros((x.shape[0],), device=x.device)
+        for layer in self.layers:
+            x = x.detach()
+            if layer.has_recon_loss:
+                total = total + layer.recon_loss_with(
+                    layer.own_params(), x, sym=sym, only_R=only_R)
+            with torch.no_grad():
+                x, _ = layer(x, generator)
+        return total
+
     def _device(self):
         """The parameters' device; the card for a flow without any."""
         p = next(self.parameters(), None)
@@ -63,16 +98,21 @@ class Flow(nn.Module):
             generator.seed()
         return generator
 
-    def _inverse(self, z, generator, noise):
+    def _inverse(self, z, generator, noise, exact=False):
         for i in reversed(range(len(self.layers))):
+            layer = self.layers[i]
+            if exact and layer.has_exact_path:
+                z = layer.exact_inverse(z)
+                continue
             extra = {"noise": noise[i]} if i in noise else {}
-            z = self.layers[i].inverse(z, generator, **extra)
+            z = layer.inverse(z, generator, **extra)
         return z
 
     @torch.inference_mode()
-    def sample(self, n, generator=None, noise=None):
+    def sample(self, n, generator=None, noise=None, exact=False):
         """``n`` draws: z from the base, then every layer's inverse in
-        reverse order, on the parameters' device. The draws come from
+        reverse order, on the parameters' device (``exact``: each layer's
+        exact inverse where it has one). The draws come from
         ``generator`` (a fresh one seeded by the system when None), or
         from ``noise``: a dict of ``"base"`` -> z and
         layer index -> that ``SplitPrior``'s factored-out half."""
@@ -82,17 +122,21 @@ class Flow(nn.Module):
         z = noise.get("base")
         if z is None:
             z, _ = self.base_distribution.sample(generator, n, device=device)
-        return self._inverse(z, generator, noise)
+        return self._inverse(z, generator, noise, exact)
 
     @torch.inference_mode()
-    def reconstruct(self, x, generator=None):
-        """Forward, then inverse. ``generator`` draws the dequantization
-        noise and every ``SplitPrior``'s half, which makes the round trip
-        lossy there, as in the JAX package."""
+    def reconstruct(self, x, generator=None, exact=False):
+        """Forward, then inverse (``exact``: each layer's exact pair where
+        it has one). ``generator`` draws the dequantization noise and
+        every ``SplitPrior``'s half, which makes the round trip lossy
+        there, as in the JAX package."""
         generator = self._generator(generator, x.device)
         for layer in self.layers:
-            x, _ = layer(x, generator)
-        return self._inverse(x, generator, {})
+            if exact and layer.has_exact_path:
+                x, _ = layer.exact_forward(x)
+            else:
+                x, _ = layer(x, generator)
+        return self._inverse(x, generator, {}, exact)
 
     @torch.no_grad()
     def data_init(self, x, generator=None):

@@ -23,6 +23,9 @@ class SplitPrior(Coupling):
         c, h, w = input_size
         self.base = GaussianPrior((c // 2, h, w))
 
+    def out_shape(self, shape):
+        return tuple(self.base.size)
+
     def forward_with(self, p, x, generator=None):
         z, ldj = super().forward_with(p, x)
         c_half = z.shape[1] // 2

@@ -21,6 +21,10 @@ def depth_to_space(x):
 
 
 class Squeeze(FlowLayer):
+    def out_shape(self, shape):
+        c, h, w = shape
+        return (c * 4, h // 2, w // 2)
+
     def forward_with(self, p, x, generator=None):
         return space_to_depth(x), zeros_ldj(x)
 

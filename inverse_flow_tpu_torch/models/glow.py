@@ -1,31 +1,44 @@
-"""Glow-style model builder.
+"""Model builders: the Glow stack, the plain CNN stack and the FC stack.
 
-Port of ``inverse_flow_tpu/models/glow.py:build_glow`` for the step kinds
-``inv_conv_no_pad`` (the flagship ``if_glow_mnist``), ``inv_flow_unit``
-with its ``_exact``/``_fused`` spellings (the ``imagenet32`` bench
-config) and ``ff`` (``FincFlowUnit``, ``ff_glow_mnist``), and the
-activations ``Spline`` and ``SLR``: squeeze + K steps of
-[ActNorm, step layer, activation, Coupling] per block, a SplitPrior
-between blocks.
+Port of ``inverse_flow_tpu/models/glow.py`` (``build_glow``,
+``build_cnn_flow``, ``build_fc_flow``) for the step kinds
+``inv_conv_no_pad`` (the flagship ``if_glow_mnist``), ``inv_conv``
+(``InvFlow`` TL), ``inv_flow_unit`` with its ``_exact``/``_fused``
+spellings (the ``imagenet32`` bench config), ``ff`` (``FincFlowUnit``),
+``snf``/``snf_cnn`` (SelfNorm 1x1 and 3x3), ``conv1x1`` and ``emerging``,
+and the activations ``Spline``, ``SLR`` and ``None``. The Glow stack is
+squeeze + K steps of [ActNorm, step layer, activation, Coupling] per
+block, a SplitPrior between blocks. Not ported: ``convexp``, the Jacobi
+and ``auto`` solver kinds, the other activations and bf16 couplings
+(ROADMAP 1.5a, 1.6, 1.5d, 1.4b).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..distributions import GaussianPrior, UniformDistribution
-from ..layers import (ActNorm, Coupling, Dequantization, FincFlowUnit, Flow,
-                      InvFlowNoPad, InvFlowUnit, LogitTransform, Normalization,
-                      RepeatedBlock, SmoothLeakyRelu, SplineActivation,
-                      SplitPrior, Squeeze)
+from ..layers import (ActNorm, Conv1x1, Coupling, Dequantization, Emerging,
+                      FincFlowUnit, Flow, InvFlow, InvFlowNoPad, InvFlowUnit,
+                      LogitTransform, Normalization, RepeatedBlock,
+                      SelfNormConv, SelfNormFC, SmoothLeakyRelu,
+                      SplineActivation, SplitPrior, Squeeze)
 
 # the InvFlowUnit step kinds of the JAX ``_step_layer``, by solver
 _UNIT_SOLVERS = {"inv_flow_unit": "auto", "inv_flow_unit_exact": "exact",
                  "inv_flow_unit_fused": "fused"}
+# the JAX step kinds the port does not build yet
+_NOT_PORTED_KINDS = ("convexp", "inv_flow_unit_jacobi", "inv_conv_auto",
+                     "inv_conv_jacobi")
 
 
-def make_activation(name: str, n_bins=5, tail_bound=20.0, generator=None,
+def make_activation(name, n_bins=5, tail_bound=20.0, generator=None,
                     device=None):
-    """Activation factory of the JAX package (``SLR`` and ``Spline``):
-    a function of the step's (C, H, W)."""
+    """Activation factory of the JAX package (``SLR``, ``Spline`` and
+    ``None``, which gives no activation layer): a function of the step's
+    size, or None."""
+    if name in (None, "None", "none"):
+        return None
     if name == "SLR":
         return lambda size: SmoothLeakyRelu(alpha=0.3)
     if name == "Spline":
@@ -36,11 +49,27 @@ def make_activation(name: str, n_bins=5, tail_bound=20.0, generator=None,
 
 
 def _step_layer(kind: str, c: int, kernel, **init):
+    """The step layer of kind ``kind`` on ``c`` channels; raises on a kind
+    that is not ported (NotImplementedError) or unknown (ValueError)."""
     if kind == "inv_conv_no_pad":
         return InvFlowNoPad(c, kernel, **init)
+    if kind == "inv_conv":
+        return InvFlow(c, kernel, order="TL", **init)
     if kind == "ff":
         return FincFlowUnit(c, (3, 3), **init)      # 3x3, as in JAX
-    return InvFlowUnit(c, kernel, solver=_UNIT_SOLVERS[kind], **init)
+    if kind in _UNIT_SOLVERS:
+        return InvFlowUnit(c, kernel, solver=_UNIT_SOLVERS[kind], **init)
+    if kind == "snf":
+        return SelfNormConv(c, c, (1, 1), bias=True, **init)
+    if kind == "snf_cnn":
+        return SelfNormConv(c, c, (3, 3), bias=True, padding=1, **init)
+    if kind == "conv1x1":
+        return Conv1x1(c, **init)
+    if kind == "emerging":
+        return Emerging(c, **init)
+    if kind in _NOT_PORTED_KINDS:
+        raise NotImplementedError(f"step kind {kind!r} is not ported")
+    raise ValueError(f"unknown step layer: {kind}")
 
 
 def build_preprocess(data_size, alpha=1e-6):
@@ -64,9 +93,6 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
     checkpoint every coupling net). The parameters are drawn from
     ``generator`` on ``device``, the CUDA card unless the caller names
     another."""
-    if step_kind not in ("inv_conv_no_pad", "ff") and \
-            step_kind not in _UNIT_SOLVERS:
-        raise NotImplementedError(f"step kind {step_kind!r} is not ported")
     if coupling_dtype != "float32":
         raise NotImplementedError(
             f"coupling_dtype {coupling_dtype!r} is not ported")
@@ -83,7 +109,8 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
         def make_step(size=size):
             step = [ActNorm(size[0], **init)] if actnorm else []
             step.append(_step_layer(step_kind, size[0], kernel, **init))
-            step.append(act(size))
+            if act is not None:
+                step.append(act(size))
             step.append(Coupling(size, width=coupling_width,
                                  remat_net=coupling_remat, **init))
             return step
@@ -94,3 +121,53 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
                                      remat_net=coupling_remat, **init))
             size = (size[0] // 2, size[1], size[2])
     return Flow(GaussianPrior(size), layers)
+
+
+def build_cnn_flow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
+                   num_blocks=3, block_size=16, activation="Spline",
+                   n_bins=10, tail_bound=30.0, kernel=(2, 2), alpha=1e-6,
+                   generator=None, device="cuda"):
+    """Plain CNN stack with the JAX builder's arguments and defaults:
+    per block ``block_size`` step layers, each followed by an activation
+    but the very last, and a squeeze between blocks."""
+    init = dict(generator=generator, device=device)
+    act = make_activation(activation, n_bins=n_bins, tail_bound=tail_bound,
+                          **init)
+    layers = build_preprocess(data_size, alpha=alpha)
+    size = tuple(data_size)
+    for b in range(num_blocks):
+        for l in range(block_size):
+            layers.append(_step_layer(step_kind, size[0], kernel, **init))
+            if act is not None and not (b == num_blocks - 1
+                                        and l == block_size - 1):
+                layers.append(act(size))
+        if b != num_blocks - 1:
+            layers.append(Squeeze())
+            size = (size[0] * 4, size[1] // 2, size[2] // 2)
+    return Flow(GaussianPrior(size), layers)
+
+
+def build_fc_flow(data_size=(1, 28, 28), num_layers=2,
+                  kind="inv_conv_no_pad", activation="Spline",
+                  tail_bound=10.0, alpha=1e-6, generator=None,
+                  device="cuda"):
+    """FC stack with the JAX builder's arguments and defaults: ``snf_fc``
+    is ``SelfNormFC`` on the flat vector; every other kind is that step
+    layer, 3x3, on the image (as the reference's ``exact_fc_mnist``). An
+    activation sits between the layers."""
+    init = dict(generator=generator, device=device)
+    layers = build_preprocess(data_size, alpha=alpha)
+    size = tuple(data_size)
+    dim = int(np.prod(size))
+    act = make_activation(activation, tail_bound=tail_bound, **init)
+    for l in range(num_layers):
+        if kind == "snf_fc":
+            layers.append(SelfNormFC(dim, dim, bias=True, **init))
+            if act is not None and (l + 1) < num_layers:
+                layers.append(act((dim,)))
+        else:
+            layers.append(_step_layer(kind, size[0], (3, 3), **init))
+            if act is not None and (l + 1) < num_layers:
+                layers.append(act(size))
+    final = (dim,) if kind == "snf_fc" else size
+    return Flow(GaussianPrior(final), layers)

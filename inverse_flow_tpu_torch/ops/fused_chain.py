@@ -423,8 +423,10 @@ def expand_grouped_kernel(w_eff, groups: int):
 def fused_chain_solve(x, w_effs, orders):
     """``y = (solve_{o_n} . ... . solve_{o_1})(x)``: each ``solve_o`` is the
     orientation-``o`` inverse of the masked conv with (already masked)
-    kernel ``w_effs[i]``. The chain's ldj is 0 (every factor is unit
-    triangular). Differentiable in ``x`` and ``w_effs`` through
+    kernel ``w_effs[i]``. For masked kernels (``apply_mask``) every factor
+    is unit triangular and the chain's ldj is 0; an Emerging
+    autoregressive kernel has a non-unit diagonal, which the solve takes
+    too (its ldj is the layer's own). Differentiable in ``x`` and ``w_effs`` through
     :class:`FusedChainSolve`. Raises on a shape the kernel does not
     take."""
     return FusedChainSolve.apply(tuple(orders), x, *w_effs)

@@ -19,9 +19,10 @@ composition, kept as a second reference beside :func:`masked_conv_apply`
 and :func:`dense_operator`.
 
 Rows are flattened as (w, c) -> w*C + c, so ``M0`` is block-lower over
-pixels with a unit diagonal. Its diagonal (C, C) blocks are lower
-triangular for a canonically masked kernel and upper triangular for its
-channel transpose, the kernel of the backward solve.
+pixels with a unit diagonal (an Emerging autoregressive kernel's diagonal
+is its own). Its diagonal (C, C) blocks are lower triangular for a
+canonically masked kernel and upper triangular for its channel transpose,
+the kernel of the backward solve.
 
 The solve's VJP (the JAX ``_inv_conv_bwd``) is again a solve:
 ``dx = T^{-T} g`` is the BR-oriented solve of ``g`` with the
@@ -121,22 +122,26 @@ def _choose_block_rows(h: int, cw: int, kh: int) -> int:
 
 
 def _tri_inverse(m0):
-    """Exact ``M0^{-1}`` for each ``M0 = I + N`` of a stack (..., CW, CW),
-    ``N`` nilpotent: the within-row matrix of a masked kernel (N strictly
-    lower) and of its channel transpose (N block-lower over pixels,
-    strictly upper within the diagonal blocks) alike.
+    """Exact ``M0^{-1}`` for each elementwise-triangular ``M0`` of a stack
+    (..., CW, CW): the within-row matrix of a masked kernel (unit lower),
+    of its channel transpose (unit upper within the diagonal blocks) and
+    of an Emerging autoregressive kernel (a non-unit diagonal) alike.
 
-    Newton-Schulz ``X <- X (2I - M0 X)`` from ``X = 2I - M0``: after k
-    steps X is ``sum_{j < 2^(k+1)} (-N)^j``, which is exact once
-    ``2^(k+1) >= CW``, as in the JAX package. Chosen over a general LU
+    ``M0 = D (I + N)`` with ``D = diag(M0)`` and ``N`` nilpotent; the unit
+    factor is inverted by Newton-Schulz ``X <- X (2I - M X)`` from ``X =
+    2I - M``: after k steps X is ``sum_{j < 2^(k+1)} (-N)^j``, which is
+    exact once ``2^(k+1) >= CW``; then ``M0^{-1} = X D^{-1}``, as the JAX
+    package's generic branch. Chosen over a general LU
     (``torch.linalg.inv``) because it is matmuls only: the same ops on
     the CPU and the card, no pivoting and no host sync."""
     n = m0.shape[-1]
+    d = torch.diagonal(m0, dim1=-2, dim2=-1)
+    m_unit = m0 / d[..., :, None]
     eye2 = 2.0 * torch.eye(n, dtype=m0.dtype, device=m0.device)
-    x = eye2 - m0
+    x = eye2 - m_unit
     for _ in range(max(1, (n - 1).bit_length() - 1)):
-        x = x @ (eye2 - m0 @ x)
-    return x
+        x = x @ (eye2 - m_unit @ x)
+    return x / d[..., None, :]
 
 
 def _toeplitz_d_blocks(mats, r_rows: int):

@@ -2,7 +2,8 @@
 
 Port of ``inverse_flow_tpu/train/checkpoint.py`` with ``torch.save``: one
 file holds the flow's state dict, the optimizer's and the scheduler's, the
-step, the summary and the config. It is written to ``path + ".tmp"`` and
+step, GECO's ``recon_weight`` and ``recon_ema``, the summary and the
+config. It is written to ``path + ".tmp"`` and
 then renamed, so a crash never leaves half a checkpoint. No Orbax backend.
 """
 
@@ -14,12 +15,14 @@ import torch
 
 
 def save_checkpoint(path, flow, optimizer, scheduler, step, summary,
-                    config_dict):
+                    config_dict, recon_weight, recon_ema):
     payload = {
         "flow": flow.state_dict(),
         "optimizer": optimizer.state_dict(),
         "scheduler": scheduler.state_dict(),
         "step": int(step),
+        "recon_weight": torch.as_tensor(recon_weight).detach().cpu(),
+        "recon_ema": torch.as_tensor(recon_ema).detach().cpu(),
         # plain floats: numpy scalars do not load with weights_only
         "summary": {k: (v if isinstance(v, (int, str)) else float(v))
                     for k, v in summary.items()},

@@ -63,6 +63,13 @@ class Experiment:
         self.memory_tracker = MemoryTracker(self.device)
         self.params = list(self.flow.parameters())
         self.step = 0
+        # GECO (JAX TrainState.recon_weight / recon_ema): the recon
+        # term's weight and the moving average of the recon loss
+        self.recon_weight = torch.tensor(config.recon_loss_weight,
+                                         dtype=torch.float32,
+                                         device=self.device)
+        self.recon_ema = torch.zeros((), device=self.device)
+        self.last_recon = torch.zeros((), device=self.device)
         self._reset_optimizer()
         self._data_initialized = False
 
@@ -127,20 +134,47 @@ class Experiment:
         return self.summary
 
     def train_step(self, x):
-        """One optimizer step on the device batch ``x``: the mean of the
-        NaN-scrubbed ``-log p(x)``, its backward, then
-        :func:`~inverse_flow_tpu_torch.train.optim.apply_grads`. Returns the
-        loss as a 0-d device tensor."""
+        """One optimizer step on the device batch ``x``, the JAX
+        ``loss_fn`` and ``apply_grads``: the mean of the NaN-scrubbed
+        ``-log p(x)`` (each layer's exact path unless
+        ``cfg.modified_grad``), plus ``recon_weight`` times the mean
+        NaN-scrubbed reconstruction loss when ``cfg.add_recon_grad`` and
+        a layer has one (drawn on the same dequantization noise); its
+        backward; :func:`~inverse_flow_tpu_torch.train.optim.apply_grads`;
+        then, with ``cfg.recon_loss_lr`` > 0, GECO: ``recon_ema`` starts
+        at the first step's recon loss and then moves by ``recon_alpha``,
+        and ``recon_weight`` is multiplied by ``exp(recon_loss_lr *
+        recon_ema)``. Returns the loss as a 0-d device tensor; the recon
+        loss stays in ``last_recon``."""
         cfg = self.cfg
-        if cfg.add_recon_grad and any(l.has_recon_loss
-                                      for l in self.flow.layers):
-            raise NotImplementedError("recon-loss gradients are not ported")
+        recon_on = cfg.add_recon_grad and any(l.has_recon_loss
+                                              for l in self.flow.layers)
         self.optimizer.zero_grad(set_to_none=True)
-        nll = -self.flow.cheap_log_prob(x, self.generator)
+        noise_state = self.generator.get_state() if recon_on else None
+        _, logpx = self.flow.forward(x, self.generator,
+                                     exact=not cfg.modified_grad)
+        nll = -logpx
         nll = torch.where(torch.isnan(nll), 0.0, nll)
         loss = nll.sum() / x.shape[0]
-        loss.backward()
+        recon = torch.zeros((), device=x.device)
+        total = loss
+        if recon_on:
+            self.generator.set_state(noise_state)
+            rvec = self.flow.recon_loss(x, self.generator,
+                                        sym=cfg.sym_recon_grad,
+                                        only_R=cfg.only_R_recon)
+            recon = torch.where(torch.isnan(rvec), 0.0, rvec).mean()
+            total = loss + self.recon_weight * recon
+        total.backward()
         apply_grads(cfg, self.optimizer, self.scheduler, self.params)
+        recon = recon.detach()
+        if cfg.recon_loss_lr > 0.0:
+            self.recon_ema = recon if self.step == 0 else (
+                cfg.recon_alpha * self.recon_ema
+                + (1 - cfg.recon_alpha) * recon)
+            self.recon_weight = self.recon_weight * torch.exp(
+                cfg.recon_loss_lr * self.recon_ema)
+        self.last_recon = recon
         self.step += 1
         return loss.detach()
 
@@ -169,9 +203,11 @@ class Experiment:
         are read once at the end of the epoch. ``Batch Time Mean/Std`` is
         the per-step time of each window, the first (warm-up) window left
         out when there are more. With ``plot_recon`` the epoch's last batch
-        goes to :meth:`plot_recon` under ``epoch`` (1-based)."""
+        goes to :meth:`plot_recon` under ``epoch`` (1-based). With
+        ``add_recon_grad`` each logged step's recon loss is logged as
+        ``Train Total Recon Loss``."""
         cfg = self.cfg
-        losses, windows, pending_logs = [], [], []
+        losses, recons, windows, pending_logs = [], [], [], []
         win_left = win_n = 0
         start = last_x = None
         for x in self.train_loader:
@@ -183,6 +219,7 @@ class Experiment:
                 start, win_left, win_n = self._mark(), max(
                     1, cfg.timing_window), 0
             losses.append(self.train_step(xb))
+            recons.append(self.last_recon)
             if win_left:
                 win_left -= 1
                 win_n += 1
@@ -194,9 +231,13 @@ class Experiment:
             windows.append((start, self._mark(), win_n))
 
         values = torch.stack(losses).cpu().numpy() if losses else []
+        recon_values = torch.stack(recons).cpu().numpy() if recons else []
         for b in pending_logs:
             self.logger.log("Train Batch Loss", float(values[b - 1]),
                             step=self.step - len(losses) + b)
+            if cfg.add_recon_grad:
+                self.logger.log("Train Total Recon Loss",
+                                float(recon_values[b - 1]))
         if windows:
             durations = [self._elapsed_ms(a, b) / n for a, b, n in windows]
             self.batch_time.update(durations[1:] if len(durations) > 1
@@ -212,11 +253,16 @@ class Experiment:
         """Mean log p(x) per example over ``loader``, up to
         ``config.max_eval_ex`` examples; the last partial batch counts.
         Each example's log p(x) is the mean over ``config.eval_mc_samples``
-        dequantization draws, as in JAX."""
-        sums, num = [], 0
+        dequantization draws, as in JAX, on the cheap path; the exact
+        log-det's difference (:meth:`Flow.exact_ldj_correction`, dense
+        slogdets of the parameters alone) is computed once per call and
+        added for every example."""
+        sums, num, corr = [], 0, None
         draws = max(1, self.cfg.eval_mc_samples)
         for x in loader:
             self.maybe_data_init(x)
+            if corr is None:
+                corr = self.flow.exact_ldj_correction(self.data_shape)
             xb = self._prep_batch(x)
             lps = [self.flow.cheap_log_prob(xb, self.generator)
                    for _ in range(draws)]
@@ -226,6 +272,7 @@ class Experiment:
             if num >= self.cfg.max_eval_ex:
                 break
         total = float(torch.stack(sums).sum()) if sums else 0.0
+        total += (float(corr) if corr is not None else 0.0) * num
         return total / max(1, num)
 
     @torch.inference_mode()
@@ -239,10 +286,11 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def sample(self, epoch):
-        """``config.n_samples`` draws, written as the grid ``<epoch>.png``
-        (and ``<epoch>_trueinv.png`` with ``sample_true_inv``: no ported
-        layer has an exact inverse of its own, so that is a second draw);
-        returns the first. With ``log_timing``, first the latency of
+        """``config.n_samples`` draws, through each layer's exact inverse
+        where it has one unless ``modified_grad``, written as the grid
+        ``<epoch>.png`` (and a second draw through the exact inverses as
+        ``<epoch>_trueinv.png`` with ``sample_true_inv``); returns the
+        first. With ``log_timing``, first the latency of
         ``n = max(5, min(n_samples, 100))`` one-image samples after one
         warm-up, each timed alone by CUDA events (the host clock on a CPU
         device), the fastest and slowest fifth left out, as ``Sample Time
@@ -259,11 +307,12 @@ class Experiment:
             self.sample_time.update(sorted(durations)[n // 5: -(n // 5)])
             self.logger.summary("Sample Time Mean", self.sample_time.mean)
             self.logger.summary("Sample Time Std", self.sample_time.std)
-        x = self.flow.sample(cfg.n_samples, self.generator)
+        x = self.flow.sample(cfg.n_samples, self.generator,
+                             exact=not cfg.modified_grad)
         self._save_image_grid(x, f"{epoch}.png")
         if cfg.sample_true_inv:
             self._save_image_grid(
-                self.flow.sample(cfg.n_samples, self.generator),
+                self.flow.sample(cfg.n_samples, self.generator, exact=True),
                 f"{epoch}_trueinv.png")
         return x
 
@@ -298,7 +347,8 @@ class Experiment:
                         f"Saving checkpoint to: {self.checkpoint_path}")
         save_checkpoint(self.checkpoint_path, self.flow, self.optimizer,
                         self.scheduler, self.step, self.summary,
-                        self.cfg.to_dict())
+                        self.cfg.to_dict(), recon_weight=self.recon_weight,
+                        recon_ema=self.recon_ema)
 
     def load(self, path=None):
         """Restore a :meth:`save`d state from ``path`` (default
@@ -315,5 +365,7 @@ class Experiment:
         self.optimizer.load_state_dict(payload["optimizer"])
         self.scheduler.load_state_dict(payload["scheduler"])
         self.step = payload["step"]
+        self.recon_weight = payload["recon_weight"].to(self.device)
+        self.recon_ema = payload["recon_ema"].to(self.device)
         self.summary = dict(payload["summary"])
         self._data_initialized = True

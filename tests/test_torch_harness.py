@@ -27,6 +27,7 @@ from inverse_flow_tpu import layers as jl
 from inverse_flow_tpu.data.loader import ArrayLoader as JaxLoader
 from inverse_flow_tpu.experiments import registry as jregistry
 from inverse_flow_tpu.layers import Flow as JaxFlow
+from inverse_flow_tpu.layers import conv1x1 as jconv1x1
 from inverse_flow_tpu.models.glow import build_glow as jax_build_glow
 from inverse_flow_tpu.train.config import ExperimentConfig as JaxConfig
 from inverse_flow_tpu.train.experiment import Experiment as JaxExperiment
@@ -262,14 +263,25 @@ def test_config_fields_act_or_raise(tmp_path):
 
 SIZES = {"if_glow_mnist": (1, 28, 28), "ff_glow_mnist": (1, 28, 28),
          "if_glow_imagenet32": (3, 32, 32), "real_digits_glow": DIGITS,
-         "real_patches_glow": (3, 16, 16)}
+         "real_patches_glow": (3, 16, 16),
+         **dict.fromkeys(("exact_fc_mnist", "selfnorm_fc_mnist",
+                          "if_cnn_mnist", "if_exact_cnn_mnist",
+                          "exact_cnn_mnist", "selfnorm_cnn_mnist",
+                          "emerging_cnn_mnist", "selfnorm_glow_mnist",
+                          "geco_selfnorm_glow_mnist", "conv1x1_glow_mnist",
+                          "if_conv1x1_glow_mnist"), (1, 28, 28)),
+         "selfnorm_glow_imagenet": (3, 32, 32),
+         "conv1x1_glow_imagenet": (3, 32, 32), "real_digits_fc": DIGITS}
 
 
 @pytest.mark.parametrize("name", sorted(SIZES))
-def test_registry_entry_matches_jax(name):
+def test_registry_entry_matches_jax(name, monkeypatch):
     """The port's entry: the JAX entry's config, and a model whose
     parameters carry the JAX tree's names and shapes (JAX's by
-    ``eval_shape``)."""
+    ``eval_shape``; Conv1x1's init, a QR in numpy, is traced as
+    ``jnp.linalg.qr`` for it: the shapes are the same)."""
+    monkeypatch.setattr(jconv1x1, "_orthogonal_init", lambda rng, n: (
+        jnp.linalg.qr(jax.random.normal(rng, (n, n)))[0]))
     ours, ref = tregistry.get_experiment(name), jregistry.get_experiment(name)
     assert ours.config.to_dict() == ref.config.to_dict()
     jflow = ref.build_model()

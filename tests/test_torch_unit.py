@@ -267,7 +267,7 @@ def test_build_glow_step_kinds_and_refusals():
         assert shape == (2, 12, 12, 3, 3)
         assert isinstance(flow.layers[5].steps[2], tl.SmoothLeakyRelu)
     for bad in (dict(step_kind="inv_flow_unit_jacobi"),
-                dict(step_kind="conv1x1"), dict(activation="SplineNat"),
+                dict(step_kind="convexp"), dict(activation="SplineNat"),
                 dict(coupling_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_glow(SIZE, **dict(MODEL_KW, **bad), device="cpu")
