@@ -27,7 +27,12 @@ from seed 0, batch 100 (104 for the patches):
   activation, recon weight 100): SelfNorm's modified gradient, recon loss,
   GECO and the dense exact log-det and inverse, Glow's 1x1 conv, Emerging
   (its inverse on the chain kernel) and the CNN and FC flows, one of them
-  (``exact_cnn_mnist``) at batch 1000,
+  (``exact_cnn_mnist``) at batch 1000;
+* the paper's Fig. 4 timing experiments: the seven ``*timescaling``
+  sweeps of 2 x ``InvFlowNoPad(1, (2, 2))`` (exact, Jacobi, ``'auto'``)
+  or SelfNorm 3x3 convs at batch 128 on (1, s, s) squares up to s = 128
+  and (1, H, 1) tall images up to H = 4160, and ``memory_speed``'s
+  (3, 32, 32) Glow (L=2 x K=16, width 256, SLR, batch 100),
 
 in phases:
 
@@ -109,7 +114,16 @@ in phases:
      B=1000 (forward, backward and dW against the plain version, timed;
      one step, its gradients against the plain chain), and 2 steps each of
      ``selfnorm_cnn_mnist``, ``selfnorm_fc_mnist``, ``exact_fc_mnist`` and
-     ``real_digits_fc``; the phase's seconds.
+     ``real_digits_fc``; the phase's seconds;
+ 13. timescaling (:func:`phase_timescaling`): at every sweep size the
+     Jacobi and ``'auto'`` arms against the exact arm on the same weights,
+     ``'auto'``'s route against ``ops/solver_policy.py``'s window, the exact
+     arm against the plain chain at s = 128 and H = 4160, the guard's
+     fallback at every tap 0.7, the step-difference floor beside the
+     policy's tolerances; the seven sweeps through ``run_timescaling`` at
+     the registry's sizes, each size's chain launches by variant and guard
+     syncs per step; the device's busy share at the largest sizes; and
+     ``memory_speed`` at its full configuration.
 
 Every chain launch of the flagship, imagenet32, ff and Emerging paths
 must go to the cluster kernel (:func:`cluster_only`), every one of W1's
@@ -2272,6 +2286,398 @@ def phase_baselines(dev, gen, card, torch, _build):
     return emerging, cnn
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the paper's Fig. 4 timescaling sweeps and solver='auto'
+# ---------------------------------------------------------------------------
+
+# the sweeps' batch (the JAX sweep's 128), and the chained loss-and-backward
+# steps of a trial (its 20): one untimed trial and 4 timed ones a size
+TIMESCALE_BATCH = 128
+TIMESCALE_ITERS = 20
+# the Jacobi arm (12 Neumann terms, or 'auto''s guarded solve) against the
+# exact arm on the same weights: log p relative and gradients by norm, as
+# the JAX package's tests/test_solver_policy.py holds 'auto' to 'exact'
+JACOBI_RTOL = 1e-4
+# every masked tap at this weight: a bare 12-term truncation on a (1, H, 1)
+# image errs by about 0.7^13 ~ 1e-2, so the guard must fall back
+GUARD_WEIGHT = 0.7
+# the step-difference floor: Jacobi iterations from x (far past
+# convergence), and the last ones whose largest step difference it is
+FLOOR_ITERS = 200
+FLOOR_TAIL = 16
+
+
+def solve_block(chw, kernel=(2, 2)):
+    """(RCW, KCW, the variant ``chain_variant`` names) of the chain solve at
+    (C, H, W), as ``fused_chain.chain_inputs`` blocks it."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    c, h, w = chw
+    r, _ = fused_chain.choose_block_rows_fused(h, c * w, kernel[0]) or (h, 0)
+    rcw = r * c * w
+    kcw = min((kernel[0] - 1) * c * w, rcw)
+    return rcw, kcw, fused_chain.chain_variant(rcw, kcw)
+
+
+@contextlib.contextmanager
+def solve_counts(torch):
+    """Counts from 0, for the body: the chain launches, by variant and
+    those of ``FusedChainSolve.backward``, and the Jacobi solves' host
+    syncs and guard fallbacks; the yielded dict is filled in on exit,
+    after a sync."""
+    from inverse_flow_tpu_torch.ops import fused_chain, inv_conv
+
+    solve_bwd = fused_chain.FusedChainSolve.backward
+    bwd = [0]
+
+    def counted_backward(ctx, gy):
+        before = fused_chain.chain_phases.launches
+        out = solve_bwd(ctx, gy)
+        bwd[0] += fused_chain.chain_phases.launches - before
+        return out
+
+    counts = {}
+    with mock.patch.object(fused_chain.FusedChainSolve, "backward",
+                           staticmethod(counted_backward)):
+        fused_chain.reset_launches()
+        inv_conv.reset_jacobi_counts()
+        yield counts
+        torch.cuda.synchronize()
+    counts.update(
+        launches=fused_chain.chain_phases.launches, backward=bwd[0],
+        by_variant=dict(fused_chain.chain_phases.launches_by_variant),
+        syncs=(inv_conv.inv_conv_solve_jacobi.syncs
+               + inv_conv.inv_conv_solve_jacobi_guarded.syncs),
+        fallbacks=inv_conv.inv_conv_solve_jacobi_guarded.fallbacks)
+
+
+def timescale_flow(name, shape, dev, torch, weight=None):
+    """The sweep's model of experiment ``name`` at ``shape`` (C, H, W) and a
+    batch of inputs, weights from seed 0 at the layer's init plus
+    normal(0, 0.05) (so that each solve moves x; the same weights for
+    every arm at one shape), or every entry ``weight``."""
+    from inverse_flow_tpu_torch.experiments.timescaling import timescale_model
+
+    gen = torch.Generator(dev).manual_seed(0)
+    flow = timescale_model(name, shape, device=dev, generator=gen)
+    with torch.no_grad():
+        for p in flow.parameters():
+            if weight is None:
+                p.add_(0.05 * torch.randn(p.shape, generator=gen, device=dev))
+            else:
+                p.fill_(weight)
+    x = torch.randn((TIMESCALE_BATCH,) + shape, generator=gen, device=dev)
+    return flow, x
+
+
+def rel_errs(a, b):
+    """(max relative log p difference, max norm-relative gradient
+    difference) of two ``loss_and_logp`` results against ``b``."""
+    lp_rel = ((a[0] - b[0]).abs() / b[0].abs()).max().item()
+    g_rel = max(((x - r).norm() / r.norm()).item()
+                for x, r in zip(a[1], b[1]))
+    return lp_rel, g_rel
+
+
+def loss_and_logp(flow, x, torch):
+    """log p(x) (detached) and the gradients of its negated mean: the
+    sweep's step, with log p kept per sample."""
+    lp = flow(x)[1]
+    return lp.detach(), torch.autograd.grad(-lp.mean(),
+                                            list(flow.parameters()))
+
+
+def check_arms(shape, card, torch, dev):
+    """At one sweep shape: the exact, Jacobi and auto arms on the same
+    weights; Jacobi and auto against exact to ``JACOBI_RTOL``; auto's
+    route from the port's window, its chain launches (2 forward + 2
+    backward on ``chain_variant``'s kernel where it routes exact, none
+    where it routes Jacobi) and guard syncs (2 + 2). Returns auto's
+    route."""
+    from inverse_flow_tpu_torch.ops.solver_policy import resolve_auto
+
+    b = TIMESCALE_BATCH
+    arms = {}
+    for name in ("if_timescaling", "if_jacobi_timescaling",
+                 "if_auto_timescaling"):
+        flow, x = timescale_flow(name, shape, dev, torch)
+        with solve_counts(torch) as n:
+            arms[name] = loss_and_logp(flow, x, torch)
+        arms[name + ":counts"] = n
+    route = resolve_auto((b,) + shape, (2, 2))
+    _, _, variant = solve_block(shape)
+    n = arms["if_auto_timescaling:counts"]
+    want = ({"launches": 0, "syncs": 4} if route == "jacobi" else
+            {"launches": 4, "backward": 2, "syncs": 0,
+             "by_variant": dict(dict.fromkeys(n["by_variant"], 0),
+                                **{variant: 4})})
+    errs = {k: rel_errs(arms[k], arms["if_timescaling"])
+            for k in ("if_jacobi_timescaling", "if_auto_timescaling")}
+    print(f"timescaling: check ({b},{','.join(map(str, shape))}): auto routes "
+          f"{route}; auto's chain launches {n['launches']} ({n['backward']} "
+          f"backward, by variant {n['by_variant']}), guard syncs "
+          f"{n['syncs']}, fallbacks {n['fallbacks']}; vs the exact arm, "
+          f"log p max rel / gradients max norm rel: jacobi "
+          f"{errs['if_jacobi_timescaling'][0]:.3e} / "
+          f"{errs['if_jacobi_timescaling'][1]:.3e}, auto "
+          f"{errs['if_auto_timescaling'][0]:.3e} / "
+          f"{errs['if_auto_timescaling'][1]:.3e} (tol {JACOBI_RTOL:.0e})",
+          flush=True)
+    if any(n[k] != v for k, v in want.items()) or n["fallbacks"]:
+        fail(f"timescaling: auto at {shape}: expected {want} and no "
+             f"fallback, got {n}")
+    if not all(e <= JACOBI_RTOL for pair in errs.values() for e in pair):
+        fail(f"timescaling: the Jacobi or auto arm disagrees with the exact "
+             f"arm at {shape}")
+    return route
+
+
+def check_exact_vs_plain(shape, card, torch, dev):
+    """The exact arm through the chain kernel against the plain chain on
+    the same weights, to ``LOGPX_RTOL`` and ``GRAD_RTOL``; every launch on
+    ``chain_variant``'s kernel."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    flow, x = timescale_flow("if_timescaling", shape, dev, torch)
+    with solve_counts(torch) as n:
+        got = loss_and_logp(flow, x, torch)
+    with plain_chain(fused_chain):
+        ref = loss_and_logp(flow, x, torch)
+    lp_rel, g_rel = rel_errs(got, ref)
+    _, _, variant = solve_block(shape)
+    print(f"timescaling: exact arm at ({TIMESCALE_BATCH},"
+          f"{','.join(map(str, shape))}) vs the plain chain: log p max rel "
+          f"{lp_rel:.3e} (tol {LOGPX_RTOL:.0e}), gradients max norm rel "
+          f"{g_rel:.3e} (tol {GRAD_RTOL:.0e}); {n['launches']} launches, by "
+          f"variant {n['by_variant']} (expected {variant})", flush=True)
+    if n["launches"] != 4 or n["by_variant"][variant] != 4:
+        fail(f"timescaling: exact arm at {shape}: launches {n}")
+    if not (lp_rel <= LOGPX_RTOL and g_rel <= GRAD_RTOL):
+        fail(f"timescaling: exact arm at {shape} disagrees with the plain "
+             f"chain")
+
+
+def check_guard(tall_sizes, card, torch, dev):
+    """The guard at every masked tap ``GUARD_WEIGHT``, at the smallest tall
+    size that 'auto' routes to Jacobi (or at H = 512, the policy's window
+    forced there, when the port's window is empty): the fallback fires
+    (syncs and fallbacks at least 1), and auto's log p and gradients
+    agree with the exact arm's to ``JACOBI_RTOL`` while the bare 12-term
+    arm's do not. Returns one layer's bare 12-term error against the
+    exact solve, relative to 1 + max|x|: the truncation error the guard
+    must catch."""
+    from inverse_flow_tpu_torch.ops import inv_conv, solver_policy
+
+    routed = [h for h in tall_sizes if solver_policy.resolve_auto(
+        (TIMESCALE_BATCH, 1, h, 1), (2, 2)) == "jacobi"]
+    h = routed[0] if routed else 512
+    shape = (1, h, 1)
+    force = contextlib.ExitStack()
+    if not routed:
+        for const in ("JACOBI_LONG_MIN", "JACOBI_LONG_MAX"):
+            force.enter_context(mock.patch.object(solver_policy, const, h))
+    with force:
+        arms, flows = {}, {}
+        for name in ("if_timescaling", "if_jacobi_timescaling",
+                     "if_auto_timescaling"):
+            flows[name], x = timescale_flow(name, shape, dev, torch,
+                                            weight=GUARD_WEIGHT)
+            with solve_counts(torch) as n:
+                arms[name] = loss_and_logp(flows[name], x, torch)
+            arms[name + ":counts"] = n
+    n = arms["if_auto_timescaling:counts"]
+    auto = rel_errs(arms["if_auto_timescaling"], arms["if_timescaling"])
+    bare = rel_errs(arms["if_jacobi_timescaling"], arms["if_timescaling"])
+    # one layer: the bare solve's residual after its 12 iterations (what
+    # the guard reads) and its error against the exact solve
+    layer = flows["if_jacobi_timescaling"].layers[0]
+    w_eff = layer._w_eff(dict(layer.named_parameters()))
+    with torch.no_grad(), inv_conv._fp32_convs():
+        scale = (1 + x.abs().max()).item()
+        y = x
+        for _ in range(12):
+            y = inv_conv._jacobi_step(x, y, w_eff, 1)
+        resid = (inv_conv._jacobi_step(x, y, w_eff, 1) - y).abs().max()
+        y_exact = flows["if_timescaling"].layers[0](x)[0]
+        trunc = (y - y_exact).abs().max().item() / scale
+        resid = resid.item() / scale
+    print(f"timescaling: guard at every tap {GUARD_WEIGHT}, ({TIMESCALE_BATCH}"
+          f",1,{h},1){'' if routed else ' (window forced there)'}: auto's "
+          f"syncs {n['syncs']}, fallbacks {n['fallbacks']}; vs the exact "
+          f"arm: auto log p {auto[0]:.3e} / gradients {auto[1]:.3e} (tol "
+          f"{JACOBI_RTOL:.0e}), bare 12-term arm {bare[0]:.3e} / "
+          f"{bare[1]:.3e}; one layer's bare 12-term solve: residual "
+          f"{resid:.3e} and error {trunc:.3e} of 1 + max|x|", flush=True)
+    if n["syncs"] < 1 or n["fallbacks"] < 1:
+        fail(f"timescaling: the guard did not fall back at weight "
+             f"{GUARD_WEIGHT}: {n}")
+    if not (auto[0] <= JACOBI_RTOL and auto[1] <= JACOBI_RTOL):
+        fail("timescaling: the guarded auto solve disagrees with the exact "
+             "arm where the fallback fires")
+    return trunc
+
+
+def step_floor(shape, weight, torch, dev):
+    """The largest step difference ``max|y_{k+1} - y_k| / (1 + max|x|)``
+    over the last ``FLOOR_TAIL`` of ``FLOOR_ITERS`` Jacobi iterations (far
+    past convergence) of the sweep's first layer at ``shape``, float32
+    with TF32 off: the noise the guard's residual cannot go below."""
+    from inverse_flow_tpu_torch.ops import inv_conv
+
+    flow, x = timescale_flow("if_jacobi_timescaling", shape, dev, torch,
+                             weight=weight)
+    layer = flow.layers[0]
+    w_eff = layer._w_eff(dict(layer.named_parameters()))
+    diffs = []
+    with torch.no_grad(), inv_conv._fp32_convs():
+        scale = 1 + x.abs().max()
+        y = x
+        for k in range(FLOOR_ITERS):
+            y_next = inv_conv._jacobi_step(x, y, w_eff, 1)
+            if k >= FLOOR_ITERS - FLOOR_TAIL:
+                diffs.append((y_next - y).abs().max() / scale)
+            y = y_next
+    return max(d.item() for d in diffs)
+
+
+def phase_timescaling(dev, card, torch):
+    """Phase 13: the paper's Fig. 4 sweeps through the port's
+    ``run_timescaling``, at the registry's sizes and batch 128, every
+    record appended to ``chiprun_out/timescaling/<name>_timescale.jsonl``;
+    for each size the chain launches by variant and the Jacobi syncs per
+    step, checked against the arm and 'auto''s route; the arms' values
+    (:func:`check_arms`, :func:`check_exact_vs_plain`), the guard
+    (:func:`check_guard`), the step-difference floor beside the policy's
+    tolerances, the exact and Jacobi arms' device busy share at the
+    largest sizes, and ``memory_speed`` at its full configuration."""
+    from inverse_flow_tpu_torch.experiments import registry
+    from inverse_flow_tpu_torch.experiments.memory_speed import \
+        run_memory_speed
+    from inverse_flow_tpu_torch.experiments.timescaling import (
+        default_sizes, run_timescaling)
+    from inverse_flow_tpu_torch.ops import solver_policy as sp
+
+    t0 = time.perf_counter()
+    label = "timescaling"
+    squares, talls = default_sizes(False), default_sizes(True)
+    shapes = [(1, s, s) for s in squares] + [(1, h, 1) for h in talls]
+
+    # ---- values: every arm against the exact one, the guard, the floor
+    routes = {shape: check_arms(shape, card, torch, dev) for shape in shapes}
+    check_exact_vs_plain((1, squares[-1], squares[-1]), card, torch, dev)
+    check_exact_vs_plain((1, talls[-1], 1), card, torch, dev)
+    trunc = check_guard(talls, card, torch, dev)
+    # tall images at both weights; the square at the init only (at every
+    # tap 0.7 its series grows for hundreds of terms before it dies out)
+    floors = {(shape, w): step_floor(shape, w, torch, dev)
+              for shape, ws in (((1, 512, 1), (None, GUARD_WEIGHT)),
+                                ((1, talls[-1], 1), (None, GUARD_WEIGHT)),
+                                ((1, squares[-1], squares[-1]), (None,)))
+              for w in ws}
+    floor = max(floors.values())
+    print(f"{label}: step-difference floor (float32, TF32 off; the largest "
+          f"|y_k+1 - y_k| / (1 + max|x|) over iterations "
+          f"{FLOOR_ITERS - FLOOR_TAIL + 1}-{FLOOR_ITERS}): " + ", ".join(
+              f"({TIMESCALE_BATCH},{','.join(map(str, s))}) "
+              f"{'init+N(0,0.05)' if w is None else f'all {w}'} {v:.3e}"
+              for (s, w), v in floors.items())
+          + f"; max {floor:.3e} {card}", flush=True)
+    print(f"{label}: policy tolerances: JACOBI_AUTO_TOL {sp.JACOBI_AUTO_TOL:g}"
+          f" = {sp.JACOBI_AUTO_TOL / floor:.0f}x the floor and "
+          f"{trunc / sp.JACOBI_AUTO_TOL:.1f}x below the truncation error "
+          f"{trunc:.3e}; JACOBI_TOL_MIN {sp.JACOBI_TOL_MIN:g} = "
+          f"{sp.JACOBI_TOL_MIN / floor:.0f}x the floor", flush=True)
+    if not (sp.JACOBI_AUTO_TOL >= 10 * floor and sp.JACOBI_TOL_MIN > floor
+            and 10 * sp.JACOBI_AUTO_TOL <= trunc):
+        fail("timescaling: the policy's tolerances do not sit above the "
+             "floor (JACOBI_AUTO_TOL 10x) and 10x below the truncation "
+             "error")
+
+    # ---- the sweeps, one size a call, counted
+    out = os.path.join(HERE, "chiprun_out", "timescaling")
+    os.makedirs(out, exist_ok=True)
+    steps = 5 * TIMESCALE_ITERS + 1
+    rows = {}
+    print(f"{label}: sweeps at batch {TIMESCALE_BATCH}, {TIMESCALE_ITERS} "
+          f"steps a trial ({steps} steps a size with the untimed trial)",
+          flush=True)
+    for name in registry.TIMESCALING:
+        tall = "tall" in name
+        for s in default_sizes(tall):
+            shape = (1, s, 1) if tall else (1, s, s)
+            route = ("snf" if name.startswith("snf") else
+                     "jacobi" if "jacobi" in name else
+                     routes[shape] if "auto" in name else "exact")
+            with contextlib.chdir(out), solve_counts(torch) as n:
+                run_timescaling(name, sizes=[s], iters=TIMESCALE_ITERS,
+                                device=dev)
+            with open(os.path.join(out, f"{name}_timescale.jsonl")) as f:
+                rec = json.loads(f.readlines()[-1])
+            _, _, variant = solve_block(shape)
+            per_step = {k: v / steps for k, v in n["by_variant"].items()
+                        if v}
+            print(f"{label}: {name} size {s} ({TIMESCALE_BATCH},"
+                  f"{','.join(map(str, shape))}): ms_best "
+                  f"{rec['ms_best']:.3f}, ms_mean {rec['ms_mean']:.3f} "
+                  f"(std {rec['ms_std']:.3f}); route {route}; chain launches "
+                  f"a step {n['launches'] / steps:g} ({n['backward'] / steps:g}"
+                  f" backward) by variant {per_step}; guard syncs a step "
+                  f"{n['syncs'] / steps:g}, fallbacks {n['fallbacks']} {card}",
+                  flush=True)
+            want = ((4 * steps, 2 * steps, 0) if route == "exact" else
+                    (0, 0, 4 * steps if "auto" in name else 0))
+            if ((n["launches"], n["backward"], n["syncs"]) != want
+                    or n["fallbacks"]
+                    or (route == "exact"
+                        and n["by_variant"][variant] != 4 * steps)):
+                fail(f"{label}: {name} at {shape}: counts {n}, expected "
+                     f"(launches, backward, syncs) {want} on {variant}")
+            rows[name, s] = rec["ms_best"]
+
+    # ---- the crossover the policy's window is read from
+    for tall, sizes in ((False, squares), (True, talls)):
+        pre = "_tall" if tall else ""
+        print(f"{label}: ms_best by size, {'tall (1,H,1)' if tall else 'square (1,s,s)'}: "
+              + "; ".join(
+                  f"{s}: exact {rows['if' + pre + '_timescaling', s]:.3f}, "
+                  f"jacobi {rows['if_jacobi' + pre + '_timescaling', s]:.3f}, "
+                  f"auto {rows['if_auto' + pre + '_timescaling', s]:.3f} "
+                  f"({routes[(1, s, 1) if tall else (1, s, s)]})"
+                  + ("" if tall else
+                     f", snf {rows['snf_timescaling', s]:.3f}")
+                  for s in sizes) + f" {card}", flush=True)
+    wins = [h for h in talls if rows["if_jacobi_tall_timescaling", h]
+            < rows["if_tall_timescaling", h]]
+    print(f"{label}: the Jacobi arm beats the exact arm at tall sizes {wins}; "
+          f"the port's window: H in [{sp.JACOBI_LONG_MIN}, "
+          f"{sp.JACOBI_LONG_MAX}], short axis x channels <= "
+          f"{sp.JACOBI_THIN_MAX}, kernels <= {sp.JACOBI_KERNEL_MAX}", flush=True)
+
+    # ---- where a step's time goes at the largest sizes
+    for name, shape in (("if_timescaling", (1, squares[-1], squares[-1])),
+                        ("if_tall_timescaling", (1, talls[-1], 1)),
+                        ("if_jacobi_timescaling", (1, squares[-1],
+                                                   squares[-1])),
+                        ("if_jacobi_tall_timescaling", (1, talls[-1], 1))):
+        flow, x = timescale_flow(name, shape, dev, torch)
+        loss_and_logp(flow, x, torch)
+        device_profile(f"timescale_{name}_{shape[1]}", "step",
+                       lambda: loss_and_logp(flow, x, torch), 3, card, torch)
+
+    # ---- memory_speed at its full configuration
+    with contextlib.chdir(out), solve_counts(torch) as n:
+        run_memory_speed(device=dev)
+    with open(os.path.join(out, "memory_speed.jsonl")) as f:
+        rec = json.loads(f.readlines()[-1])
+    print(f"memory_speed: {json.dumps(rec)}; chain launches {n['launches']} "
+          f"({n['backward']} backward) by variant {n['by_variant']} for data "
+          f"init and 21 steps {card}", flush=True)
+    if not (math.isfinite(rec["loss"]) and "memory_peak_mb" in rec
+            and n["launches"] == n["by_variant"]["cluster"]):
+        fail(f"memory_speed: {rec}, launches {n}")
+    print(f"{label}: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -2502,7 +2908,11 @@ def main():
     emerging_row, cnn_row = phase_baselines(dev, gen, card, torch, _build)
     phase_done(12)
 
-    print(f"smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 13. the Fig. 4 timescaling sweeps, solver='auto', memory_speed -
+    phase_timescaling(dev, card, torch)
+    phase_done(13)
+
+    print(f"smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 

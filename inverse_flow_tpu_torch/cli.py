@@ -7,7 +7,10 @@ miniature model of the experiment's family on synthetic data, 2 epochs),
 ``--epochs``, ``--batch-size``, ``--profile-dir`` (a ``torch.profiler``
 trace of epoch 1) and ``--resume``. The run is on the CUDA card, and
 raises without one, unless ``--cpu`` is given. The summary is printed as
-JSON on the last line.
+JSON on the last line. ``memory_speed`` and the ``*timescaling`` sweeps
+run their own configuration (``--smoke``: the small one) and ignore the
+other flags, as in JAX; their records go to ``./memory_speed.jsonl`` and
+``./<name>_timescale.jsonl``.
 """
 
 from __future__ import annotations
@@ -40,15 +43,35 @@ def main(argv=None):
 
     if args.list or not args.name:
         print("available experiments:")
-        for name in sorted(EXPERIMENTS):
+        for name in sorted(set(EXPERIMENTS) | {"memory_speed"}):
             print(f"  {name}")
         return 0
 
     import torch
 
+    device = "cpu" if args.cpu else "cuda"
+
+    def _warn_ignored(kind):
+        ignored = [f for f, v in (("--epochs", args.epochs),
+                                  ("--batch-size", args.batch_size),
+                                  ("--profile-dir", args.profile_dir),
+                                  ("--resume", args.resume)) if v is not None]
+        if ignored:
+            print(f"warning: {kind} runs its own sweep config; "
+                  f"ignoring {', '.join(ignored)}", file=sys.stderr)
+
+    if args.name == "memory_speed":
+        from .experiments.memory_speed import run_memory_speed
+        _warn_ignored("memory_speed")
+        return run_memory_speed(smoke=args.smoke, device=device)
+
     spec = get_experiment(args.name)
     cfg = spec.config
-    device = "cpu" if args.cpu else "cuda"
+
+    if args.name.endswith("timescaling"):
+        from .experiments.timescaling import run_timescaling
+        _warn_ignored("timescaling")
+        return run_timescaling(args.name, smoke=args.smoke, device=device)
 
     overrides = {}
     if args.profile_dir:

@@ -5,9 +5,12 @@ builds, under the same names and with the same ``ExperimentConfig``s (a
 copy here: the port imports nothing of the JAX package): the flagship
 and its FincFlow sibling, the ImageNet32 Glow, the real-data runs, and
 the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, the CNN
-and FC flows). ``build_model``
-takes ``device`` (the CUDA card by default) and ``generator``; the other
-JAX names raise, naming the ROADMAP item that ports them.
+and FC flows), and the Fig. 4 timescaling sweeps (their model is built per
+size inside ``experiments/timescaling.py``, so their ``build_model``
+gives None, as in JAX). ``build_model`` takes ``device`` (the CUDA card
+by default) and ``generator``; the other JAX names raise, naming the
+ROADMAP item that ports them. ``memory_speed`` is the CLI's own name, in
+no registry.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from ..data import digits, imagenet, mnist, patches
+from ..data import digits, imagenet, mnist, patches, synthetic
 from ..models.glow import build_cnn_flow, build_fc_flow, build_glow
 from ..train.config import ExperimentConfig
 
@@ -37,10 +40,6 @@ NOT_PORTED = {
     **dict.fromkeys(("exponential_cnn_mnist",), "1.5a"),
     **dict.fromkeys(("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"),
                     "1.7"),
-    **dict.fromkeys(("if_timescaling", "if_jacobi_timescaling",
-                     "if_auto_timescaling", "snf_timescaling",
-                     "if_tall_timescaling", "if_jacobi_tall_timescaling",
-                     "if_auto_tall_timescaling", "memory_speed"), "1.8"),
 }
 
 
@@ -285,3 +284,23 @@ _register(
                      modified_grad=False, add_recon_grad=False,
                      warmup_epochs=2, recon_loss_weight=0.0,
                      scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# Timescaling (JAX registry.py:319-378): train-step time against input size
+# on synthetic data; the model is built per size by run_timescaling
+# ---------------------------------------------------------------------------
+for _tname, _tlabel, _tlr in (
+        ("if_timescaling", "IF timescaling", 1e-5),
+        ("if_jacobi_timescaling", "IF jacobi timescaling", 1e-5),
+        ("if_auto_timescaling", "IF auto timescaling", 1e-5),
+        ("snf_timescaling", "SNF timescaling", 1e-3),
+        ("if_tall_timescaling", "IF tall timescaling", 1e-5),
+        ("if_jacobi_tall_timescaling", "IF jacobi tall timescaling", 1e-5),
+        ("if_auto_tall_timescaling", "IF auto tall timescaling", 1e-5)):
+    _register(
+        _tname, lambda **kw: None, synthetic.load_data,
+        ExperimentConfig(name=_tlabel, lr=_tlr, batch_size=128,
+                         modified_grad=True, add_recon_grad=False,
+                         scheduler_name="None"))
+
+TIMESCALING = tuple(n for n in EXPERIMENTS if n.endswith("timescaling"))

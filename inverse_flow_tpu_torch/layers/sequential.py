@@ -2,7 +2,8 @@
 
 Port of ``inverse_flow_tpu/layers/sequential.py:Flow`` (forward,
 ``forward_verbose``, ``cheap_log_prob``, ``exact_ldj_correction``,
-``recon_loss``, ``data_init``, ``sample``, ``reconstruct``). The ldj of
+``recon_loss``, ``data_init``, ``sample``, ``reconstruct``,
+``plot_filters``). The ldj of
 each layer is added once. ``exact=True`` takes each layer's exact path
 where it has one (SelfNorm's dense slogdet and solve); the exact log-prob
 is the cheap one plus :meth:`Flow.exact_ldj_correction`, which depends on
@@ -137,6 +138,40 @@ class Flow(nn.Module):
             else:
                 x, _ = layer(x, generator)
         return self._inverse(x, generator, {}, exact)
+
+    @torch.no_grad()
+    def plot_filters(self, save_dir, prefix="filters"):
+        """Write every conv-kernel-shaped parameter as a heatmap-grid PNG
+        (the JAX ``Flow.plot_filters``): a 4-D parameter whose last two
+        dims are at most 16 is one kernel, a 5-D one (a ``RepeatedBlock``'s
+        K stacked steps) K kernels, ``..._k<j>``; the file is
+        ``<prefix>_<layer index>_<layer type>_<key>.png``, the key being
+        the parameter's dotted name without its dots (the JAX pytree
+        path). Returns the written paths."""
+        import os
+
+        from ..utils.imaging import filter_heatmap_grid, write_png
+
+        os.makedirs(save_dir, exist_ok=True)
+        written = []
+        for i, layer in enumerate(self.layers):
+            for name, p in layer.named_parameters():
+                a = p.detach().cpu().numpy()
+                key = name.replace(".", "")
+                if a.ndim == 5 and a.shape[3] <= 16 and a.shape[4] <= 16:
+                    kernels = [(f"{key}_k{j}", a[j])
+                               for j in range(a.shape[0])]
+                elif a.ndim == 4 and a.shape[2] <= 16 and a.shape[3] <= 16:
+                    kernels = [(key, a)]
+                else:
+                    continue
+                for kkey, ka in kernels:
+                    out = os.path.join(
+                        save_dir,
+                        f"{prefix}_{i:02d}_{type(layer).__name__}_{kkey}.png")
+                    write_png(out, filter_heatmap_grid(ka))
+                    written.append(out)
+        return written
 
     @torch.no_grad()
     def data_init(self, x, generator=None):

@@ -2,15 +2,15 @@
 
 Port of ``inverse_flow_tpu/models/glow.py`` (``build_glow``,
 ``build_cnn_flow``, ``build_fc_flow``) for the step kinds
-``inv_conv_no_pad`` (the flagship ``if_glow_mnist``), ``inv_conv``
-(``InvFlow`` TL), ``inv_flow_unit`` with its ``_exact``/``_fused``
+``inv_conv_no_pad`` (the flagship ``if_glow_mnist``) with its
+``inv_conv_auto``/``inv_conv_jacobi`` solvers, ``inv_conv`` (``InvFlow``
+TL), ``inv_flow_unit`` with its ``_exact``/``_fused``/``_jacobi``
 spellings (the ``imagenet32`` bench config), ``ff`` (``FincFlowUnit``),
 ``snf``/``snf_cnn`` (SelfNorm 1x1 and 3x3), ``conv1x1`` and ``emerging``,
 and the activations ``Spline``, ``SLR`` and ``None``. The Glow stack is
 squeeze + K steps of [ActNorm, step layer, activation, Coupling] per
-block, a SplitPrior between blocks. Not ported: ``convexp``, the Jacobi
-and ``auto`` solver kinds, the other activations and bf16 couplings
-(ROADMAP 1.5a, 1.6, 1.5d, 1.4b).
+block, a SplitPrior between blocks. Not ported: ``convexp``, the other
+activations and bf16 couplings (ROADMAP 1.5a, 1.5d, 1.4b).
 """
 
 from __future__ import annotations
@@ -26,10 +26,13 @@ from ..layers import (ActNorm, Conv1x1, Coupling, Dequantization, Emerging,
 
 # the InvFlowUnit step kinds of the JAX ``_step_layer``, by solver
 _UNIT_SOLVERS = {"inv_flow_unit": "auto", "inv_flow_unit_exact": "exact",
-                 "inv_flow_unit_fused": "fused"}
+                 "inv_flow_unit_fused": "fused",
+                 "inv_flow_unit_jacobi": "jacobi"}
+# the InvFlowNoPad step kinds, by solver
+_NO_PAD_SOLVERS = {"inv_conv_no_pad": "exact", "inv_conv_auto": "auto",
+                   "inv_conv_jacobi": "jacobi"}
 # the JAX step kinds the port does not build yet
-_NOT_PORTED_KINDS = ("convexp", "inv_flow_unit_jacobi", "inv_conv_auto",
-                     "inv_conv_jacobi")
+_NOT_PORTED_KINDS = ("convexp",)
 
 
 def make_activation(name, n_bins=5, tail_bound=20.0, generator=None,
@@ -51,8 +54,8 @@ def make_activation(name, n_bins=5, tail_bound=20.0, generator=None,
 def _step_layer(kind: str, c: int, kernel, **init):
     """The step layer of kind ``kind`` on ``c`` channels; raises on a kind
     that is not ported (NotImplementedError) or unknown (ValueError)."""
-    if kind == "inv_conv_no_pad":
-        return InvFlowNoPad(c, kernel, **init)
+    if kind in _NO_PAD_SOLVERS:
+        return InvFlowNoPad(c, kernel, solver=_NO_PAD_SOLVERS[kind], **init)
     if kind == "inv_conv":
         return InvFlow(c, kernel, order="TL", **init)
     if kind == "ff":

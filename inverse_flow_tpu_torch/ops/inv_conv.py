@@ -29,12 +29,22 @@ The solve's VJP (the JAX ``_inv_conv_bwd``) is again a solve:
 channel-transposed kernel (:func:`_transpose_kernel`), and
 ``dW = -wgrad(y_padTL, dx)`` (:func:`_solve_wgrad`), a convolution with the
 batch as the contraction.
+
+The Jacobi solves (:func:`inv_conv_solve_jacobi`,
+:func:`inv_conv_solve_jacobi_guarded` and their implicit-VJP forms) take
+no operator build and no scan: each iteration is one masked conv, plain
+torch (the JAX package runs them as XLA convs in a ``fori_loop``). Where
+JAX decides on the device (``lax.while_loop``, ``lax.cond``), the port
+reads one value on the host, and counts each such sync.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 
 # ---------------------------------------------------------------------------
@@ -227,15 +237,177 @@ def solve_ungrouped(x, w_eff):
 # Backward pieces: transposed kernel and weight gradient
 # ---------------------------------------------------------------------------
 
-def _transpose_kernel(w_eff):
-    """Channel transpose (groups=1): the kernel of ``T^T``'s solve."""
-    return w_eff.transpose(0, 1)
+def _transpose_kernel(w_eff, groups: int = 1):
+    """Channel transpose within each group's (C/g, C/g) block: the kernel
+    of ``T^T``'s solve."""
+    if groups == 1:
+        return w_eff.transpose(0, 1)
+    c, cg = w_eff.shape[0], w_eff.shape[1]
+    wg = w_eff.reshape(groups, cg, cg, *w_eff.shape[2:]).transpose(1, 2)
+    return wg.reshape(c, cg, *w_eff.shape[2:])
 
 
-def _solve_wgrad(y, dx, kh: int, kw: int):
+def _solve_wgrad(y, dx, kh: int, kw: int, groups: int = 1):
     """``dW = -wgrad(y_padTL, dx)``: the weight cotangent of ``y = T^{-1}
     x`` given ``dx = T^{-T} g``; ``dK[c, c', a, b] = sum_{n, h, w}
-    dx[n, c, h, w] * y_pad[n, c', h+a, w+b]``, in float32."""
+    dx[n, c, h, w] * y_pad[n, c', h+a, w+b]``, in float32, each group's
+    block on its own channels."""
     y_pad = F.pad(y, (kw - 1, 0, kh - 1, 0))
-    return -torch.nn.grad.conv2d_weight(y_pad, (dx.shape[1], y.shape[1], kh,
-                                                kw), dx)
+    return -torch.nn.grad.conv2d_weight(
+        y_pad, (dx.shape[1], y.shape[1] // groups, kh, kw), dx,
+        groups=groups)
+
+
+# ---------------------------------------------------------------------------
+# Jacobi (Neumann-series) solve: every iteration one masked conv
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _fp32_convs():
+    """cuDNN convs in full float32 (TF32 off) for the duration: the
+    guard's tolerance sits above the float32 step-difference floor, which
+    TF32's 10-bit mantissa would raise past it."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _jacobi_step(x, y, w_eff, groups):
+    """``x - (T y - y)``; its difference from ``y`` is the residual
+    ``x - T y``."""
+    return x - (masked_conv_apply(y, w_eff, groups) - y)
+
+
+def inv_conv_solve_jacobi(x, w_eff, groups: int = 1, iters: int = 12,
+                          tol: float = 0.0):
+    """Approximate ``T^{-1} x`` by the fixed-point iteration ``y_{k+1} =
+    x - (T - I) y_k`` from ``y_0 = x`` (the JAX
+    ``inv_conv_solve_jacobi``): ``iters`` masked convs, no sequential
+    scan over the rows. ``T - I`` is strictly lower triangular in raster
+    order, so the series is exact after C/g*H*W iterations and converges
+    geometrically in ``||T - I||``.
+
+    ``tol > 0`` stops early once ``max|y_{k+1} - y_k| < tol``: the JAX
+    ``lax.while_loop`` decides on the device; here each iteration reads
+    the maximum on the host, one sync counted in
+    ``inv_conv_solve_jacobi.syncs``."""
+    with _fp32_convs():
+        y = x
+        for _ in range(iters):
+            y_next = _jacobi_step(x, y, w_eff, groups)
+            if tol > 0.0:
+                inv_conv_solve_jacobi.syncs += 1
+                if ((y_next - y).abs().max() < tol).item():
+                    return y_next
+            y = y_next
+        return y
+
+
+def inv_conv_solve_jacobi_guarded(x, w_eff, groups: int = 1,
+                                  fast_iters: int = 12,
+                                  cap_iters: int = 128,
+                                  tol: float = 1e-3):
+    """The residual-guarded Jacobi solve (the JAX
+    ``inv_conv_solve_jacobi_guarded``): ``fast_iters`` iterations, one
+    more whose step difference is the true residual ``x - T y``, and only
+    when ``max|residual| >= tol * (1 + max|x|)`` the fallback: iterations
+    up to ``cap_iters`` in all (exact once ``cap_iters`` reaches the
+    nilpotency index C/g*H*W). JAX decides with ``lax.cond`` on the
+    device; here the decision is one host sync per solve, counted in
+    ``inv_conv_solve_jacobi_guarded.syncs``, and each fallback in
+    ``.fallbacks``."""
+    with _fp32_convs():
+        y = x
+        for _ in range(fast_iters):
+            y = _jacobi_step(x, y, w_eff, groups)
+        y_next = _jacobi_step(x, y, w_eff, groups)
+        ok = (y_next - y).abs().max() < tol * (1.0 + x.abs().max())
+        inv_conv_solve_jacobi_guarded.syncs += 1
+        if ok.item():
+            return y_next
+        inv_conv_solve_jacobi_guarded.fallbacks += 1
+        for _ in range(max(cap_iters - fast_iters - 1, 0)):
+            y_next = _jacobi_step(x, y_next, w_eff, groups)
+        return y_next
+
+
+def reset_jacobi_counts():
+    """Sets the Jacobi solves' sync and fallback counts to 0."""
+    inv_conv_solve_jacobi.syncs = 0
+    inv_conv_solve_jacobi_guarded.syncs = 0
+    inv_conv_solve_jacobi_guarded.fallbacks = 0
+
+
+reset_jacobi_counts()
+
+
+def _jacobi_forward(ctx, solve, x, w_eff, groups, *args):
+    y = solve(x, w_eff, groups, *args)
+    ctx.groups, ctx.args = groups, args
+    ctx.save_for_backward(y, w_eff)
+    return y
+
+
+def _jacobi_backward(ctx, solve, g):
+    """The implicit-function VJP of both Jacobi solves (the JAX
+    ``_jacobi_bwd``/``_jacobi_guarded_bwd``): ``dx = T^{-T} g`` solves the
+    flipped cotangent by the same iteration on the channel-transposed
+    kernel, ``dW = -wgrad(y, dx)``; no iterate is kept, whatever the
+    number of iterations."""
+    y, w_eff = ctx.saved_tensors
+    dx = solve(g.flip((2, 3)), _transpose_kernel(w_eff, ctx.groups),
+               ctx.groups, *ctx.args).flip((2, 3))
+    dw = _solve_wgrad(y, dx, w_eff.shape[2], w_eff.shape[3], ctx.groups)
+    return (dx, dw, None) + (None,) * len(ctx.args)
+
+
+class JacobiSolve(torch.autograd.Function):
+    """:func:`inv_conv_solve_jacobi` with its implicit-function VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w_eff, groups, iters, tol):
+        return _jacobi_forward(ctx, inv_conv_solve_jacobi, x, w_eff, groups,
+                               iters, tol)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _jacobi_backward(ctx, inv_conv_solve_jacobi, g)
+
+
+class GuardedJacobiSolve(torch.autograd.Function):
+    """:func:`inv_conv_solve_jacobi_guarded` with its implicit-function
+    VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w_eff, groups, fast_iters, cap_iters, tol):
+        return _jacobi_forward(ctx, inv_conv_solve_jacobi_guarded, x, w_eff,
+                               groups, fast_iters, cap_iters, tol)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _jacobi_backward(ctx, inv_conv_solve_jacobi_guarded, g)
+
+
+def inv_conv_solve_jacobi_implicit(x, w_eff, groups: int = 1,
+                                   iters: int = 12, tol: float = 0.0):
+    """:func:`inv_conv_solve_jacobi` with the implicit-function VJP (the
+    JAX ``inv_conv_solve_jacobi_implicit``); ``tol > 0`` stops both the
+    forward and the cotangent solve early."""
+    return JacobiSolve.apply(x, w_eff, groups, iters, tol)
+
+
+def inv_conv_solve_jacobi_guarded_implicit(x, w_eff, groups: int = 1,
+                                           fast_iters: int = 12,
+                                           cap_iters: int = 128,
+                                           tol: float = 1e-3):
+    """:func:`inv_conv_solve_jacobi_guarded` with the implicit-function
+    VJP, whose cotangent solve is guarded too (the JAX
+    ``inv_conv_solve_jacobi_guarded_implicit``): the solve that
+    ``solver='auto'`` routes to."""
+    return GuardedJacobiSolve.apply(x, w_eff, groups, fast_iters, cap_iters,
+                                    tol)

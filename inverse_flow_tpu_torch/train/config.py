@@ -93,18 +93,9 @@ class ExperimentConfig:
         return dataclasses.asdict(self)
 
 
-def check_ported(cfg: ExperimentConfig, first_epoch: Optional[int] = None):
+def check_ported(cfg: ExperimentConfig):
     """Raise ``NotImplementedError`` on a setting the port cannot act on:
-    ``data_parallel`` (ROADMAP 1.7), and, for a run from ``first_epoch`` to
-    ``cfg.epochs``, filter plots (``save_images`` with an epoch that is a
-    multiple of ``vis_epochs``; ``plot_filters`` waits for ROADMAP 1.8)."""
+    ``data_parallel`` (ROADMAP 1.7)."""
     if cfg.data_parallel:
         raise NotImplementedError(
             "data_parallel: the port runs on one device (ROADMAP 1.7)")
-    if (first_epoch is not None and cfg.save_images and cfg.vis_epochs > 0
-            and cfg.epochs // cfg.vis_epochs * cfg.vis_epochs
-            >= first_epoch):
-        raise NotImplementedError(
-            f"vis_epochs={cfg.vis_epochs} asks for filter plots within "
-            f"{cfg.epochs} epochs with save_images set: plot_filters is not "
-            f"ported (ROADMAP 1.8)")

@@ -99,9 +99,10 @@ class Experiment:
         the validation split (and the train split with ``eval_train``,
         each layer's mean ldj with ``verbose``), and on a new best the test
         split, then :meth:`save`; sample at epochs 1-4, 10 and every
-        ``sample_epochs``. Returns the summary."""
+        ``sample_epochs``; with ``save_images``, every ``vis_epochs``
+        write the filter heatmaps (:meth:`Flow.plot_filters`) under
+        ``<sample_dir>/filters``. Returns the summary."""
         cfg = self.cfg
-        check_ported(cfg, first_epoch=self.summary["Epoch"] + 1)
         for e in range(self.summary["Epoch"] + 1, cfg.epochs + 1):
             self.summary["Epoch"] = e
             with trace(cfg.profile_dir if e == 1 else None):
@@ -131,6 +132,10 @@ class Experiment:
 
             if e < 5 or e == 10 or e % cfg.sample_epochs == 0:
                 self.sample(e)
+            if cfg.save_images and e % cfg.vis_epochs == 0:
+                self.flow.plot_filters(os.path.join(cfg.sample_dir,
+                                                    "filters"),
+                                       prefix=f"e{e:04d}")
         return self.summary
 
     def train_step(self, x):

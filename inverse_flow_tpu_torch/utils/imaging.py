@@ -1,8 +1,9 @@
 """Image-grid saver for sample and reconstruction dumps.
 
 Numpy-only copy of ``inverse_flow_tpu/utils/imaging.py`` (``make_grid``,
-``write_png``, ``save_image_grid``; ``tests/test_torch_sample.py`` holds it
-to the JAX one byte for byte). PNG is written by the pure-python encoder
+``write_png``, ``save_image_grid``, ``filter_heatmap_grid``;
+``tests/test_torch_sample.py`` and ``tests/test_torch_timescaling.py``
+hold it to the JAX one byte for byte). PNG is written by the pure-python encoder
 below: no PIL.
 """
 
@@ -52,3 +53,15 @@ def write_png(path, rgb):
 
 def save_image_grid(x, path, nrow=10, padding=2):
     write_png(path, make_grid(x, nrow=nrow, padding=padding))
+
+
+def filter_heatmap_grid(w):
+    """A (C_out, C_in, KH, KW) conv kernel as one heatmap grid image: C_out
+    rows of C_in KHxKW tiles, each kernel scaled to [0, 1] on its own."""
+    w = np.asarray(w, np.float32)
+    co, ci, kh, kw = w.shape
+    lo = w.min(axis=(2, 3), keepdims=True)
+    hi = w.max(axis=(2, 3), keepdims=True)
+    norm = (w - lo) / np.maximum(hi - lo, 1e-12)
+    tiles = norm.reshape(co * ci, 1, kh, kw)
+    return make_grid(np.repeat(tiles, 3, axis=1), nrow=ci, padding=1)

@@ -357,8 +357,13 @@ def test_inv_flow_fused_is_the_exact_solve():
     fused.load_state_dict(exact.state_dict())
     x = torch.randn((2, 4, 6, 6), generator=gen)
     torch.testing.assert_close(fused(x)[0], exact(x)[0], rtol=0, atol=0)
-    for bad in ("auto", "jacobi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.6"):
-            tl.InvFlow(4, (3, 3), solver=bad)
+    # 'auto' outside the Jacobi window (a 3x3 kernel) is the same solve;
+    # 'jacobi' is ported (tests/test_torch_jacobi.py holds it to JAX)
+    auto = tl.InvFlow(4, (3, 3), solver="auto", device="cpu")
+    auto.load_state_dict(exact.state_dict())
+    assert auto._eff_solver(x.shape) == "exact"
+    torch.testing.assert_close(auto(x)[0], exact(x)[0], rtol=0, atol=0)
+    assert tl.InvFlow(4, (3, 3), solver="jacobi")._eff_solver(x.shape) \
+        == "jacobi"
     with pytest.raises(ValueError):
         tl.InvFlow(4, (3, 3), solver="no_such_solver")

@@ -236,8 +236,9 @@ def _records(path):
 
 def test_config_fields_act_or_raise(tmp_path):
     """``verbose`` logs each layer's mean ldj; ``profile_dir`` writes a
-    trace of epoch 1; filter plots (``save_images`` and a multiple of
-    ``vis_epochs`` within the run) and ``data_parallel`` raise."""
+    trace of epoch 1; ``save_images`` with a multiple of ``vis_epochs``
+    within the run writes the filter heatmaps (``Flow.plot_filters``);
+    ``data_parallel`` raises."""
     exp = _small_experiment(tmp_path, verbose=True, plot_recon=False,
                             save_images=False,
                             profile_dir=str(tmp_path / "prof"))
@@ -248,11 +249,12 @@ def test_config_fields_act_or_raise(tmp_path):
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
 
     exp = _small_experiment(tmp_path, vis_epochs=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        exp.run()
-    assert exp.summary["Epoch"] == 0
-    check_ported(exp.cfg.replace(vis_epochs=2), first_epoch=1)  # 2 > epochs
-    check_ported(exp.cfg.replace(save_images=False), first_epoch=1)
+    exp.run()
+    assert exp.summary["Epoch"] == 1
+    filters = sorted(os.listdir(tmp_path / "s" / "filters"))
+    assert filters and all(f.startswith("e0001_") for f in filters)
+    check_ported(exp.cfg.replace(vis_epochs=2))
+    check_ported(exp.cfg.replace(save_images=False))
     with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
         _small_experiment(tmp_path, data_parallel=True)
 
@@ -302,12 +304,13 @@ def test_unported_names_raise():
     ROADMAP item that ports it; an unknown name raises KeyError."""
     jax_names = set(jregistry.EXPERIMENTS) | {"memory_speed"}
     assert jax_names == set(tregistry.EXPERIMENTS) | set(
-        tregistry.NOT_PORTED)
-    assert set(SIZES) == set(tregistry.EXPERIMENTS)
+        tregistry.NOT_PORTED) | {"memory_speed"}
+    assert set(SIZES) | set(tregistry.TIMESCALING) == set(
+        tregistry.EXPERIMENTS)
     with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.4"):
         tregistry.get_experiment("if_glow_cifar")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.8"):
-        cli.main(["--name", "if_timescaling", "--cpu"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.5a"):
+        cli.main(["--name", "exponential_cnn_mnist", "--cpu"])
     with pytest.raises(KeyError):
         tregistry.get_experiment("no_such_experiment")
 
@@ -318,7 +321,7 @@ def test_cli_list_and_smoke(tmp_path, monkeypatch, capsys):
     without ``--cpu`` the run is on the card and raises without one."""
     assert cli.main(["--list"]) == 0
     listed = capsys.readouterr().out.split()[2:]
-    assert listed == sorted(tregistry.EXPERIMENTS)
+    assert listed == sorted(set(tregistry.EXPERIMENTS) | {"memory_speed"})
     monkeypatch.chdir(tmp_path)
     assert cli.main(["--name", "real_digits_glow", "--smoke", "--cpu"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

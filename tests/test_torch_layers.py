@@ -189,5 +189,9 @@ def test_bridge_rejects_mismatched_params():
 
 
 def test_inv_flow_other_solvers_raise():
-    with pytest.raises(NotImplementedError):
-        tl.InvFlowNoPad(4, (3, 3), solver="jacobi")
+    """Every JAX solver name builds (``'jacobi'`` and ``'auto'`` are
+    ported); an unknown one raises."""
+    for solver in ("auto", "exact", "fused", "jacobi"):
+        assert tl.InvFlowNoPad(4, (3, 3), solver=solver).solver == solver
+    with pytest.raises(ValueError):
+        tl.InvFlowNoPad(4, (3, 3), solver="newton")

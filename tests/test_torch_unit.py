@@ -102,8 +102,9 @@ def test_inv_flow_unit_matches_jax(chw, solver):
 
 
 def test_inv_flow_unit_solvers_and_names():
-    """'auto', 'exact' and 'fused' are one function; 'jacobi' is not
-    ported; the parameters carry the JAX names."""
+    """'auto' (outside the Jacobi window), 'exact' and 'fused' are one
+    function; 'jacobi' solves order by order through its four 'jacobi'
+    child convs; the parameters carry the JAX names."""
     x = torch.from_numpy(_inputs((12, 4, 4), 0, b=2, seed=4)[0])
     gen = torch.Generator().manual_seed(0)
     units = [tl.InvFlowUnit(12, solver=s) for s in ("auto", "exact",
@@ -114,8 +115,12 @@ def test_inv_flow_unit_solvers_and_names():
     ys = [u.forward_with(w, x)[0] for u in units]
     for y in ys[1:]:
         assert torch.equal(y, ys[0])
-    with pytest.raises(NotImplementedError):
-        tl.InvFlowUnit(12, solver="jacobi")
+    jacobi = tl.InvFlowUnit(12, solver="jacobi")
+    assert [c.solver for c in jacobi.convs] == ["jacobi"] * 4
+    y = x
+    for i, conv in enumerate(jacobi.convs):
+        y = conv.forward_with({"w": w[f"convs.{i}.w"]}, y)[0]
+    assert torch.equal(jacobi.forward_with(w, x)[0], y)
     with pytest.raises(ValueError):
         tl.InvFlowUnit(12, solver="newton")
 
@@ -260,14 +265,13 @@ def test_build_glow_step_kinds_and_refusals():
     """The unit step kinds build the JAX parameter names; kinds,
     activations and coupling dtypes that are not ported raise."""
     for kind in ("inv_flow_unit", "inv_flow_unit_exact",
-                 "inv_flow_unit_fused"):
+                 "inv_flow_unit_fused", "inv_flow_unit_jacobi"):
         flow = build_glow(SIZE, **dict(MODEL_KW, step_kind=kind),
                           device="cpu")
         shape = flow.layers[5].get_parameter("steps.1.convs.3.w").shape
         assert shape == (2, 12, 12, 3, 3)
         assert isinstance(flow.layers[5].steps[2], tl.SmoothLeakyRelu)
-    for bad in (dict(step_kind="inv_flow_unit_jacobi"),
-                dict(step_kind="convexp"), dict(activation="SplineNat"),
+    for bad in (dict(step_kind="convexp"), dict(activation="SplineNat"),
                 dict(coupling_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_glow(SIZE, **dict(MODEL_KW, **bad), device="cpu")
