@@ -33,15 +33,24 @@ from seed 0, batch 100 (104 for the patches):
   or SelfNorm 3x3 convs at batch 128 on (1, s, s) squares up to s = 128
   and (1, H, 1) tall images up to H = 4160, and ``memory_speed``'s
   (3, 32, 32) Glow (L=2 x K=16, width 256, SLR, batch 100),
+* the rest of the layer zoo: ``exponential_cnn_mnist`` (9 ConvExp layers
+  and RQ splines, the carried power-iteration vector ``u``), the paper's
+  FastFlow ImageNet32 model (L=3 x K=48 of ``InvFlow`` TL, ``Conv1x1``
+  and coupling width 512, ``GaussianizeSplit`` between levels; its
+  registry entry asks for data parallelism, so it runs with
+  ``data_parallel=False``), the grouped ``InvFlow``, the SmoothTanh
+  inverse and the B-spline layers,
 
 in phases:
 
   1. device: the card's name and power limit;
-  2. build: the chain kernels and the SLR-inverse kernels from
-     ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source, all
-     started together), each kernel's registers, shared memory and
-     spills, the cluster kernel's resident clusters at every main-path
-     shape, and the wide cluster kernel's plan (row groups, resident or
+  2. build: the chain kernels and the Newton-inverse kernels (SLR and
+     SmoothTanh) from ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for
+     each source, all started together), each kernel's registers, shared
+     memory and spills, the MUFU instructions in the Newton kernels'
+     loops (SASS), which must be the counts rows H and H2 are bound by,
+     the cluster kernel's resident clusters at every main-path shape,
+     and the wide cluster kernel's plan (row groups, resident or
      streamed slices, resident clusters) at the wide shapes
      (:func:`print_build`);
   3. kernel: the kernel the dispatch picks (the cluster kernel at every
@@ -123,11 +132,27 @@ in phases:
      policy's tolerances; the seven sweeps through ``run_timescaling`` at
      the registry's sizes, each size's chain launches by variant and guard
      syncs per step; the device's busy share at the largest sizes; and
-     ``memory_speed`` at its full configuration.
+     ``memory_speed`` at its full configuration;
+ 14. zoo (:func:`phase_zoo`): ``exponential_cnn_mnist`` at its registry
+     config (data init, 10 steps with u checked after each against one
+     power iteration of the new kernel, the exact log p against the cheap
+     one within the series tail, ``Flow.sample`` and a round trip, ms/step,
+     a profiled step, the CLI's smoke run); FastFlow ImageNet32 (the N=1 TL launch at its
+     three shapes against its plain version, timed beside it, the library
+     call and the bound; data init and one eval batch; 3 steps with 144 +
+     144 launches a step, all ``cluster``; step-1 gradients against the
+     plain chain; ms/step, peak memory, a profiled step; ``Flow.sample``);
+     ``InvFlow(12, (3, 3), groups=2)`` forward and backward through the
+     kernel against the plain chain, timed; the SmoothTanh-inverse kernel
+     against its plain loop at imagenet32's shapes, B=100 and 1, beta 0.1
+     and 0.01, timed beside it and the bound, and ``SmoothTanh.inverse``
+     counted; ``BSplineActivation`` and ``BSplineCoupling`` (width 512)
+     forward and inverse, ms per call, launch calls and round trips.
 
-Every chain launch of the flagship, imagenet32, ff and Emerging paths
-must go to the cluster kernel (:func:`cluster_only`), every one of W1's
-model to the wide cluster kernel; the real-data runs print the variant of each launch
+Every chain launch of the flagship, imagenet32, ff, Emerging and FastFlow
+paths and of the grouped ``InvFlow`` must go to the cluster kernel
+(:func:`cluster_only`), every one of W1's model to the wide cluster
+kernel; the real-data runs print the variant of each launch
 shape. Every phase prints one line or more and its
 seconds; the line
 before the last is the kernel summary as JSON, the last ``{"ok": true,
@@ -144,6 +169,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,12 +212,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 # the SmoothLeakyRelu inverse: its alpha in every model, its launch shapes
 # (imagenet32's three levels at B=100 and B=1, real_digits_glow's two at
-# B=100), and the special-function operations of one Newton step
+# B=100), and the special-function (MUFU) instructions of one Newton step:
+# expf's EX2 and __fdividef's RCP (log1pf is a polynomial); phase 2 fails
+# unless its kernel's loop holds these
 SLR_ALPHA = 0.3
 SLR_SHAPES = [(100, 12, 16, 16), (100, 24, 8, 8), (100, 48, 4, 4),
               (1, 12, 16, 16), (1, 24, 8, 8), (1, 48, 4, 4),
               (100, 4, 4, 4), (100, 8, 2, 2)]
-SLR_MUFU_PER_STEP = 3
+SLR_MUFU_PER_STEP = 2
 # the wide blocks that the cluster kernel refuses, on the wide cluster
 # kernel: (C, H, W), kernel size, batch. W1: the paper's Fig. 4 tall sweep
 # at its longest image (``if_tall_timescaling``: 2 x InvFlowNoPad(1, (2, 2))
@@ -1685,9 +1713,9 @@ def phase_resume(dev, whole_rows, card, torch):
         fail("the resumed run does not continue the run")
 
 
-def phase_cli(card):
-    """``cli.main(["--name", "real_digits_glow", "--smoke"])`` on the card,
-    in ``chiprun_out/cli``: it must finish and print its summary JSON
+def phase_cli(card, name="real_digits_glow"):
+    """``cli.main(["--name", name, "--smoke"])`` on the card, in
+    ``chiprun_out/cli``: it must finish and print its summary JSON
     last."""
     import io
 
@@ -1697,11 +1725,11 @@ def phase_cli(card):
     os.makedirs(out, exist_ok=True)
     buf = io.StringIO()
     with contextlib.chdir(out), contextlib.redirect_stdout(buf):
-        rc = cli.main(["--name", "real_digits_glow", "--smoke"])
+        rc = cli.main(["--name", name, "--smoke"])
     last = buf.getvalue().strip().splitlines()[-1]
     summary = json.loads(last)
-    print(f"cli: --name real_digits_glow --smoke: exit {rc}, summary {last} "
-          f"{card}", flush=True)
+    print(f"cli: --name {name} --smoke: exit {rc}, summary {last} {card}",
+          flush=True)
     if rc != 0 or summary.get("Epoch") != 2 or not math.isfinite(
             summary.get("Test BPD", float("nan"))):
         fail("the CLI's smoke run did not finish")
@@ -2678,6 +2706,514 @@ def phase_timescaling(dev, card, torch):
     print(f"{label}: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the layer zoo
+# ---------------------------------------------------------------------------
+
+# SmoothTanh's default beta, and a flat tail where f' falls to 0.01
+TANH_BETAS = (0.1, 0.01)
+# special-function (MUFU) instructions in a TanhStep Newton step, the
+# function's least: tanhf's EX2 and RCP, and __fdividef's RCP (f' is taken
+# from the same tanh); phase 2 fails unless its kernel's loop holds these
+TANH_MUFU_PER_STEP = 3
+# ConvExp's cheap eval leaves the series tail sum_{k>6} s^k/k! of |x| a
+# layer, s the normalized conv's norm: within 1.3 x coeff^7/7! where the
+# power iterations' sigma sits up to 2% under s (tests/test_torch_convexp.py)
+CONVEXP_TAIL = 1.3 * 0.9 ** 7 / math.factorial(7)
+# the B-spline inverse: 20 bisections and 5 Newton steps on [0, 1], mapped
+# back over 2 x tail_bound
+BSPLINE_RTOL = 1e-4
+ROUND_TRIP_RTOL = 1e-3
+
+
+def tanh_bound(n, steps):
+    """(bound_ms, bound_by) of one SmoothTanh inverse on ``n`` elements
+    over ``steps`` Newton steps in all: bytes (8 an element) at the HBM
+    rate or ``TANH_MUFU_PER_STEP`` MUFU operations a step at the SFU
+    rate."""
+    bytes_ms = 8 * n / PEAK_BYTES_PER_S * 1e3
+    ops_ms = TANH_MUFU_PER_STEP * steps / PEAK_MUFU_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def check_smooth_tanh(gen, dev, card, torch):
+    """The SmoothTanh-inverse kernel (K2) against its plain loop at
+    imagenet32's three shapes, B=100 and B=1, y uniform in [-40, 40], at
+    alpha 1 and beta 0.1 and 0.01: every element within
+    ``smooth_tanh_inverse_limit``; the steps the kernel's exit test needs (mean,
+    warp maximum, elements whose iterate never settles); at beta 0.1 its
+    time beside the plain loop's and the bound on the steps these inputs
+    need and on 100 (:func:`tanh_bound`). No PyTorch call computes the
+    function. Returns the summary entry's numbers (means over the three
+    shapes at B=100, beta 0.1)."""
+    from inverse_flow_tpu_torch.ops import activations as act
+
+    rows, max_err = [], 0.0
+    shapes = [(b,) + s[1:] for b in (BATCH, 1) for s in SLR_SHAPES[:3]]
+    for beta in TANH_BETAS:
+        for shape in shapes:
+            y = slr_inputs(shape, gen, dev, torch)
+            with torch.inference_mode():
+                x = act.smooth_tanh_inverse(y, 1.0, beta)
+                hist = act.smooth_tanh_inverse_history(y, 1.0, beta)
+                off = (x - hist[-1]).abs()
+                inside = bool((off <= act.smooth_tanh_inverse_limit(
+                    y, hist, 1.0, beta)).all())
+                err = off.max().item()
+                res = (act.smooth_tanh(x, 1.0, beta) - y).abs().max().item()
+                steps = act.smooth_tanh_inverse_steps(
+                    y.reshape(-1), 1.0, beta, tol=act.SLR_EXIT_TOL)
+                pad = (-steps.numel()) % 32
+                warps = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32)
+                mean = steps.float().mean().item()
+                warp_max = warps.max(1).values.float().mean().item()
+                never = int((steps == act.NEWTON_ITERS).sum())
+                t = None
+                if beta == TANH_BETAS[0]:
+                    t = dict(ab_ms({"kernel": lambda: act.smooth_tanh_inverse(
+                        y, 1.0, beta)}, reps=50, rounds=4, torch=torch,
+                        ahead=True), **ab_ms(
+                        {"plain": lambda: act.smooth_tanh_inverse_reference(
+                            y, 1.0, beta)}, reps=3, rounds=2, torch=torch))
+            bound, bound_by = tanh_bound(y.numel(), int(steps.sum()))
+            bound_100, _ = tanh_bound(y.numel(), 100 * y.numel())
+            times = "" if t is None else (
+                f"kernel {1e3 * t['kernel']:.2f} us, plain loop "
+                f"{1e3 * t['plain']:.2f} us per call; bound "
+                f"{1e3 * bound:.3f} us on those steps ({bound_by}; the "
+                f"kernel at {bound / t['kernel']:.2%} of it), "
+                f"{1e3 * bound_100:.3f} us on 100 steps; ")
+            print(f"smooth_tanh: {shape} beta {beta}: {times}steps needed "
+                  f"mean {mean:.3f}, warp maximum mean {warp_max:.3f}, "
+                  f"{never} elements never settle ({never / y.numel():.3%})"
+                  f"; max abs err vs plain {err:.3e}, all within the limit "
+                  f"{inside}; |f(x) - y| {res:.3e} {card}", flush=True)
+            if not inside:
+                fail(f"the SmoothTanh-inverse kernel lands outside the "
+                     f"plain loop's limit at {shape} beta {beta}")
+            max_err = max(max_err, err)
+            if t is not None and shape[0] == BATCH:
+                rows.append((t["kernel"], t["plain"], bound, bound_100, mean,
+                             warp_max))
+                row_bound_by = bound_by
+    ms, plain_ms, bound_ms, bound_100, mean, warp_max = (
+        statistics.fmean(c) for c in zip(*rows))
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=row_bound_by,
+                bound_100_steps_ms=bound_100, steps_mean=mean,
+                steps_warp_max=warp_max, library_ms=None)
+
+
+def smooth_tanh_path(gen, dev, torch):
+    """The SmoothTanh layer's inverse, its entry point, at imagenet32's
+    three shapes on B=100, the kernel's launch count set to 0 just before
+    and read just after (one launch a call); each round trip within
+    ``SAMPLE_RTOL`` by norm. Returns the launches."""
+    from inverse_flow_tpu_torch.layers import SmoothTanh
+    from inverse_flow_tpu_torch.ops import activations as act
+
+    layer = SmoothTanh()
+    xs = [3 * torch.randn((BATCH,) + s[1:], generator=gen, device=dev)
+          for s in SLR_SHAPES[:3]]
+    with torch.inference_mode():
+        zs = [layer(x)[0] for x in xs]
+        act.reset_smooth_tanh_launches()
+        back = [layer.inverse(z) for z in zs]
+        torch.cuda.synchronize()
+        launches = act.smooth_tanh_inverse.launches
+        rel = max(((b - x).norm() / x.norm()).item()
+                  for b, x in zip(back, xs))
+    print(f"smooth_tanh: SmoothTanh.inverse at {len(xs)} shapes of B="
+          f"{BATCH}: {launches} kernel launches; round trip |inverse("
+          f"forward(x)) - x| / |x| {rel:.3e} (tol {SAMPLE_RTOL:.0e})",
+          flush=True)
+    if launches != len(xs) or not rel <= SAMPLE_RTOL:
+        fail(f"SmoothTanh.inverse: {launches} launches, round trip {rel}")
+    return launches
+
+
+def launch_calls(fn, torch):
+    """Kernel launch calls of one ``fn()`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunch"))
+
+
+def phase_bspline(gen, dev, card, torch):
+    """``BSplineActivation`` (8 bins, tail bound 10, coefficients drawn
+    at std 0.5) and ``BSplineCoupling`` (width 512; its zero-initialized
+    last conv drawn at std 0.01, so that the spline is not the identity)
+    at imagenet32's three shapes, B=100 and B=1, inputs 3 x N(0, 1): the
+    forward and the inverse (plain torch: 20 bisections and 5 Newton
+    steps) on the card, ms per call, the inverse's kernel launch calls,
+    and the round trip within ``BSPLINE_RTOL`` x max(1, max|x|)."""
+    from inverse_flow_tpu_torch.layers import (BSplineActivation,
+                                               BSplineCoupling)
+
+    act = BSplineActivation(n_bins=8, tail_bound=10.0, generator=gen,
+                            device=dev)
+    with torch.no_grad():
+        act.coeffs.copy_(0.5 * torch.randn(act.coeffs.shape, generator=gen,
+                                           device=dev))
+    for b in (BATCH, 1):
+        for s in SLR_SHAPES[:3]:
+            chw = s[1:]
+            cpl = BSplineCoupling(chw, width=512, generator=gen, device=dev)
+            with torch.no_grad():
+                cpl.w3.copy_(0.01 * torch.randn(cpl.w3.shape, generator=gen,
+                                                device=dev))
+            x = 3 * torch.randn((b,) + chw, generator=gen, device=dev)
+            for name, layer in (("BSplineActivation", act),
+                                ("BSplineCoupling", cpl)):
+                with torch.inference_mode():
+                    z, ldj = layer(x)
+                    back = layer.inverse(z)
+                    err = (back - x).abs().max().item()
+                    tol = BSPLINE_RTOL * max(1.0, x.abs().max().item())
+                    t = ab_ms({"forward": lambda: layer(x),
+                               "inverse": lambda: layer.inverse(z)},
+                              reps=3, rounds=2, torch=torch)
+                    calls = launch_calls(lambda: layer.inverse(z), torch)
+                print(f"bspline: {name} {(b,) + chw}: forward "
+                      f"{t['forward']:.3f} ms, inverse {t['inverse']:.3f} ms "
+                      f"per call, {calls} kernel launch calls an inverse; "
+                      f"round trip max abs err {err:.3e} (tol {tol:.1e}); "
+                      f"ldj finite {bool(torch.isfinite(ldj).all())} {card}",
+                      flush=True)
+                if not (err <= tol and torch.isfinite(ldj).all()):
+                    fail(f"{name} does not round-trip at {(b,) + chw}")
+
+
+def convexp_carry_check(convexps, errs, torch):
+    """A ``train_step`` wrapper factory: after the step every ConvExp's u
+    must be one power iteration, against the step's new kernel, from the
+    u before it (``errs`` collects the max abs differences)."""
+    from inverse_flow_tpu_torch.layers.convexp import spectral_normalize
+
+    def wrap(step_fn):
+        def step(xb):
+            prev = [layer.u.detach().clone() for layer in convexps]
+            loss = step_fn(xb)
+            with torch.no_grad():
+                for layer, u0 in zip(convexps, prev):
+                    want = spectral_normalize(layer.kernel, u0,
+                                              layer.input_size,
+                                              layer.coeff)[1]
+                    errs.append((layer.u - want).abs().max().item())
+            return loss
+        return step
+    return wrap
+
+
+def phase_exponential(dev, gen, card, torch):
+    """``exponential_cnn_mnist`` at its registry config (9 ConvExp layers
+    at (1,28,28), (4,14,14), (16,7,7); the RQ spline, 10 bins, tail 10;
+    Adam lr 1e-3, no scheduler; no modified gradient, so training takes
+    the 13-term series): data init and 10 steps, every loss finite and
+    after each step every u one power iteration of the new kernel from
+    the u before (within 1e-6; u is in no optimizer group); one eval
+    batch, and the exact log p against the cheap one within the series
+    tail, 9 x ``CONVEXP_TAIL`` relatively; ``Flow.sample`` of 100 and the
+    round trip through the layers after the preprocessing; train ms/step
+    and a profiled step; the CLI's smoke run of the name."""
+    from inverse_flow_tpu_torch.layers import ConvExp, Flow
+
+    label = "exponential"
+    exp, first = baseline("exponential_cnn_mnist", dev, torch,
+                          TRAIN_EXAMPLES, batch_size=BATCH,
+                          max_eval_ex=BATCH)
+    flow = exp.flow
+    convexps = [l for l in flow.layers if isinstance(l, ConvExp)]
+    shapes = sorted({l.input_size for l in convexps})
+    errs = []
+    wrap = convexp_carry_check(convexps, errs, torch)
+    with mock.patch.object(exp, "train_step", wrap(exp.train_step)):
+        values, mean_loss, _, _, _ = counted_epoch(exp, first, torch)
+    in_opt = {id(p) for g in exp.optimizer.param_groups for p in g["params"]}
+    carried = [l.u for l in convexps]
+    print(f"{label}: {exp.cfg.name}, {len(convexps)} ConvExp at "
+          f"{shapes}; data init + {len(values)} steps of {BATCH}: losses "
+          f"{', '.join(f'{v:.4f}' for v in values)}; u after each step vs "
+          f"one power iteration of the new kernel: max abs diff "
+          f"{max(errs):.3e} over {len(errs)} checks (tol 1e-6); u in the "
+          f"optimizer: {any(id(u) in in_opt for u in carried)}", flush=True)
+    if len(convexps) != 9 or len(values) != TRAIN_EXAMPLES // BATCH or \
+            not all(map(math.isfinite, values)):
+        fail(f"{label}: {len(convexps)} ConvExp layers, losses {values}")
+    if not max(errs) <= 1e-6 or any(id(u) in in_opt for u in carried) or \
+            len(errs) != 9 * len(values):
+        fail(f"{label}: the carried u does not follow the carry rule")
+
+    logpx = exp.eval_epoch(exp.val_loader)
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    x = torch.as_tensor(first, device=dev)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        cheap = body(x + u)[1]
+        exact = body(x + u, exact=True)[1]
+        corr = flow.exact_ldj_correction((1, 28, 28)).item()
+    gap = ((exact - cheap).abs() / cheap.abs()).max().item()
+    bound = len(convexps) * CONVEXP_TAIL
+    print(f"{label}: eval over 1 batch: log p(x) {logpx:.4f}, BPD "
+          f"{exp.to_bpd(logpx):.4f}; exact log p (13 terms) vs cheap (6), "
+          f"same noise: max rel gap {gap:.3e} (the series tail bound "
+          f"{bound:.3e}), exact correction {corr}", flush=True)
+    if not (math.isfinite(logpx) and gap <= bound and corr == 0.0):
+        fail(f"{label}: eval {logpx}, exact gap {gap} > {bound}")
+
+    with torch.inference_mode():
+        s = flow.sample(BATCH, gen)
+        tail = Flow(flow.base_distribution, flow.layers[4:])
+        z, _ = flow.base_distribution.sample(gen, BATCH, device=dev)
+        y = tail.sample(BATCH, noise={"base": z})
+        z_back = tail(y, exact=True)[0]
+        rt = ((z_back - z).abs().max() / z.abs().max().clamp(min=1)).item()
+    print(f"{label}: Flow.sample of {BATCH}: shape {tuple(s.shape)}, values "
+          f"{s.min().item():.0f}..{s.max().item():.0f}, finite "
+          f"{bool(torch.isfinite(s).all())}; round trip through the layers "
+          f"after the logit, forward(sample(z)) vs z: max abs err / "
+          f"max(1, max|z|) {rt:.3e} (tol {ROUND_TRIP_RTOL:.0e})", flush=True)
+    if not (torch.isfinite(s).all() and s.shape == (BATCH, 1, 28, 28)
+            and rt <= ROUND_TRIP_RTOL):
+        fail(f"{label}: samples not finite or round trip {rt}")
+
+    def step():
+        exp.train_step(x + u)
+
+    t = ab_ms({"step": step}, reps=3, rounds=2, torch=torch)
+    print(f"{label}: train {t['step']:.3f} ms/step of {BATCH}, CUDA events, "
+          f"median of 2 turns of 3 steps {card}", flush=True)
+    device_profile(label, "step", step, 2, card, torch)
+    phase_cli(card, "exponential_cnn_mnist")
+
+
+def phase_fastflow(dev, gen, card, torch):
+    """The paper's FastFlow ImageNet32 model (``if_imagenet_multi_gpu``'s
+    spec: 3 levels x 48 steps of [``InvFlow`` TL 3x3, ``Conv1x1``,
+    ``Coupling`` width 512], ``GaussianizeSplit`` between levels) at its
+    registry config with ``data_parallel=False`` (Adam lr 1e-5, no
+    scheduler), B=100, on synthetic ImageNet32: the N=1 TL launch at its
+    three solve shapes, forward and backward, against the plain version
+    and timed beside it, the library call and the bound (rows L, Lb); data
+    init and one eval batch (144 launches a pass, 3 passes); log p(x)
+    against the plain chain; 3 train steps (144 forward and 144 backward
+    launches a step, all ``cluster``); step-1 gradients against the plain
+    chain; train ms/step against the plain chain, peak memory, a profiled
+    step; ``Flow.sample`` of 100. Returns the forward and backward rows of
+    the summary line."""
+    from inverse_flow_tpu_torch.data import ArrayLoader
+    from inverse_flow_tpu_torch.experiments.registry import \
+        FASTFLOW_IMAGENET32 as spec
+    from inverse_flow_tpu_torch.layers import Flow
+    from inverse_flow_tpu_torch.ops import fused_chain
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    label = "fastflow"
+    on = dict(gen=gen, dev=dev, torch=torch)
+    cases = [(chw, ("TL",)) for chw in UNIT_SHAPES]
+    errs = (check_forward(cases, f"{label}: kernel", **on),
+            check_backward(cases, f"{label}: backward", **on))
+    rows = [dict(time_rows(UNIT_SHAPES, ("TL",), backward, 50, 4, label,
+                           card=card, **on), max_abs_err=err)
+            for backward, err in ((False, errs[0]), (True, errs[1]))]
+
+    cfg = spec.config.replace(
+        data_parallel=False, batch_size=BATCH, max_eval_ex=BATCH,
+        save_images=False, plot_recon=False, seed=0,
+        metrics_path=os.path.join(HERE, "chiprun_out",
+                                  "fastflow_metrics.jsonl"))
+    with warnings.catch_warnings(record=True):   # phase 8 printed it
+        warnings.simplefilter("always")
+        train, val, test = spec.load_data(batch_size=BATCH, seed=cfg.seed)
+    train = ArrayLoader(train.data[:UNIT_TRAIN_EXAMPLES], BATCH,
+                        shuffle=True, seed=cfg.seed)
+    first = train.data[:BATCH]
+    flow = spec.build_model(device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    exp = Experiment(flow, train, val, test, cfg, device=dev)
+    n_params = sum(p.numel() for p in flow.parameters())
+
+    fused_chain.reset_launches()
+    t0 = time.perf_counter()
+    exp.maybe_data_init(first)
+    logpx = exp.eval_epoch(val)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} data init + eval", launches)
+    eval_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
+    print(f"{label}: {cfg.name} with data_parallel=False, {n_params} params;"
+          f" data init + eval over 1 batch of {BATCH}: log p(x) "
+          f"{logpx:.4f}, BPD {exp.to_bpd(logpx):.4f}; chain kernel launches "
+          f"{launches} for 3 passes (144 per pass); {host_s:.1f} s; peak "
+          f"memory {eval_gb:.3f} GB", flush=True)
+    if not math.isfinite(logpx) or launches != 144 * 3:
+        fail(f"{label}: log p {logpx}, {launches} launches (expected 432)")
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    x = torch.as_tensor(first, device=dev)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        z, lp = body(x + u)
+        with plain_chain(fused_chain):
+            _, lp_ref = body(x + u)
+    rel = ((lp - lp_ref).abs() / lp_ref.abs()).max().item()
+    print(f"{label}: log p(x) kernel vs plain chain on one batch, same "
+          f"noise: max rel err {rel:.3e} (tol {LOGPX_RTOL:.0e}); z "
+          f"{tuple(z.shape)}", flush=True)
+    if z.shape != (BATCH, 48, 4, 4) or not rel <= LOGPX_RTOL:
+        fail(f"{label}: output {tuple(z.shape)}, log p rel err {rel}")
+    del z, lp, lp_ref
+
+    values, mean_loss, launches, bwd, init_state = counted_epoch(
+        exp, first, torch)
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    peak_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
+    steps = len(values)
+    print(f"{label}: {steps} steps of {BATCH} (Adam lr {cfg.lr}, no "
+          f"scheduler): losses {', '.join(f'{v:.4f}' for v in values)}; "
+          f"chain kernel launches {launches - bwd} forward + {bwd} backward "
+          f"(by variant {by}); peak memory {peak_gb:.3f} GB {card}",
+          flush=True)
+    if steps != UNIT_TRAIN_EXAMPLES // BATCH or \
+            not all(map(math.isfinite, values)):
+        fail(f"{label}: losses {values}")
+    if (launches - bwd, bwd) != (144 * steps, 144 * steps):
+        fail(f"{label}: expected 144 + 144 chain launches a step, got "
+             f"{launches - bwd} + {bwd} in {steps} steps")
+
+    flow.load_state_dict(init_state)
+    x = check_grads(label, flow, first, gen, dev, torch)
+    step = time_steps(label, exp, x, 1, 2, card, torch)
+    device_profile(label, "step", step, 1, card, torch)
+
+    fused_chain.reset_launches()
+    with torch.inference_mode():
+        s = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    print(f"{label}: Flow.sample of {BATCH}: shape {tuple(s.shape)}, values "
+          f"{s.min().item():.0f}..{s.max().item():.0f}, finite "
+          f"{bool(torch.isfinite(s).all())}, "
+          f"{fused_chain.chain_phases.launches} chain launches (InvFlow's "
+          f"inverse is its masked conv)", flush=True)
+    if not torch.isfinite(s).all() or s.shape != (BATCH, 3, 32, 32):
+        fail(f"{label}: samples not finite")
+    return [dict(r, launches=n) for r, n in zip(rows, (launches - bwd, bwd))]
+
+
+def check_grouped_invflow(gen, dev, card, torch):
+    """``InvFlow(12, (3, 3), groups=2)`` at (100, 12, 16, 16), forward and
+    backward through the chain kernel (one launch each, ``cluster``),
+    against the same layer on the plain chain: y and dx within ``1e-5 *
+    max(1, max|.|)``, dW within 1e-4 of max|dW|; then the launch on the
+    expanded block-diagonal kernel timed beside the plain version, the
+    library call and the bound. Returns the summary entry."""
+    from inverse_flow_tpu_torch.layers import InvFlow
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    chw = UNIT_SHAPES[0]
+    layer = InvFlow(chw[0], (3, 3), groups=2, generator=gen, device=dev)
+    x = torch.randn((BATCH,) + chw, generator=gen, device=dev)
+    gy = torch.randn(x.shape, generator=gen, device=dev)
+
+    def run():
+        xr = x.clone().requires_grad_()
+        y = layer(xr)[0]
+        return (y.detach(),) + torch.autograd.grad(y, [xr, layer.w], gy)
+
+    fused_chain.reset_launches()
+    y, dx, dw = run()
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    cluster_only("grouped InvFlow forward + backward", launches)
+    with plain_chain(fused_chain):
+        y_ref, dx_ref, dw_ref = run()
+    err = (y - y_ref).abs().max().item()
+    dx_err = (dx - dx_ref).abs().max().item()
+    dw_rel = ((dw - dw_ref).abs().max() / dw_ref.abs().max()).item()
+    tol = 1e-5 * max(1.0, y_ref.abs().max().item())
+    dx_tol = 1e-5 * max(1.0, dx_ref.abs().max().item())
+    w = fused_chain.expand_grouped_kernel(
+        layer._w_eff(layer.own_params()).detach(), 2)
+    t, (bound, bound_by, fma), lib_err = time_launch(
+        x, [w], ("TL",), False, 50, 4, torch)
+    print(f"grouped: InvFlow groups=2 {(BATCH,) + chw}: {launches} chain "
+          f"launches (forward + backward); y max abs err {err:.3e} (tol "
+          f"{tol:.3e}), dx {dx_err:.3e} (tol {dx_tol:.3e}), dW max err / "
+          f"max|dW| {dw_rel:.3e} (tol 1e-4); "
+          f"{launch_times(t, bound, bound_by, fma)}; library vs kernel max "
+          f"abs diff {lib_err:.3e} {card}", flush=True)
+    if launches != 2 or not (err <= tol and dx_err <= dx_tol
+                             and dw_rel <= 1e-4):
+        fail("the grouped InvFlow through the kernel disagrees with the "
+             "plain chain")
+    return dict(mean_row([(t["kernel"], t["streaming"], t["plain"],
+                           t["library"], bound)], bound_by),
+                max_abs_err=max(err, dx_err), launches=launches)
+
+
+def phase_zoo(dev, gen, card, torch):
+    """Phase 14: ``exponential_cnn_mnist`` (:func:`phase_exponential`),
+    FastFlow ImageNet32 (:func:`phase_fastflow`), the grouped ``InvFlow``
+    on the card (:func:`check_grouped_invflow`), the SmoothTanh-inverse
+    kernel (:func:`check_smooth_tanh`, :func:`smooth_tanh_path`) and the
+    B-spline layers (:func:`phase_bspline`). Returns the summary line's
+    new entries."""
+    t0 = time.perf_counter()
+    phase_exponential(dev, gen, card, torch)
+    fastflow_rows = phase_fastflow(dev, gen, card, torch)
+    torch.cuda.empty_cache()
+    grouped_row = check_grouped_invflow(gen, dev, card, torch)
+    tanh_row = check_smooth_tanh(gen, dev, card, torch)
+    tanh_row["launches"] = smooth_tanh_path(gen, dev, torch)
+    phase_bspline(gen, dev, card, torch)
+    print(f"zoo: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return fastflow_rows, grouped_row, tanh_row
+
+
+def newton_loop_mufu(lib):
+    """Per step of ``newton_inverse_kernel`` in the built library ``lib``
+    (``"SlrStep"``, ``"TanhStep"``), the MUFU instructions and the calls in
+    its Newton loop: the SASS (``cuobjdump -sass``) between the target of
+    the backward branch that closes the loop (the one after the warp
+    vote) and that branch."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found, step, code = {}, None, []
+    for line in sass.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if step is not None:
+                found[step] = _loop_mufu(code)
+            name = line.split("Function :")[1]
+            step = next((s for s in ("SlrStep", "TanhStep")
+                         if "newton_inverse_kernel" in name and s in name),
+                        None)
+            code = []
+        elif step is not None and line.strip().startswith("/*"):
+            addr, _, rest = line.strip()[2:].partition("*/")
+            code.append((int(addr, 16), rest.split(";")[0].strip()))
+    return found
+
+
+def _loop_mufu(code):
+    """(MUFU instructions, calls) between a loop's backward branch, the
+    first after the kernel's VOTE, and its target."""
+    vote = next(a for a, ins in code if ins.startswith("VOTE"))
+    end, start = next(
+        (a, int(ins.split()[-1], 16)) for a, ins in code
+        if a > vote and "BRA" in ins and int(ins.split()[-1], 16) < a)
+    body = [ins for a, ins in code if start <= a <= end]
+    return (sum(ins.startswith("MUFU") for ins in body),
+            sum(ins.startswith("CALL") for ins in body))
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -2692,10 +3228,21 @@ def print_build(dev, _build, fused_chain):
             print(f"build: {name} kernel: {line.strip()}", flush=True)
     for line in _build.build_log("slr_inverse").splitlines():
         if "Compiling entry" in line:
-            name = "fixed" if "fixed_kernel" in line else "early_exit"
+            name = ("slr_inverse fixed" if "fixed_kernel" in line else
+                    "smooth_tanh_inverse" if "TanhStep" in line else
+                    "slr_inverse early_exit")
         elif "registers" in line or "spill" in line:
-            print(f"build: slr_inverse {name} kernel: {line.strip()}",
-                  flush=True)
+            print(f"build: {name} kernel: {line.strip()}", flush=True)
+    loops = newton_loop_mufu(_build.build("slr_inverse"))
+    want = {"SlrStep": SLR_MUFU_PER_STEP, "TanhStep": TANH_MUFU_PER_STEP}
+    for step, (mufu, calls) in loops.items():
+        print(f"build: newton_inverse_kernel<{step}>: {mufu} MUFU "
+              f"instructions and {calls} calls in its Newton loop's SASS "
+              f"(the bound takes {want[step]})", flush=True)
+    if loops != {step: (n, 0) for step, n in want.items()}:
+        fail(f"the Newton loops' SASS holds {loops} MUFU instructions and "
+             f"calls, not the {want} MUFU and no calls that the bounds of "
+             f"rows H and H2 take")
     for rcw, kcw in ((392, 112), (336, 112), (384, 384)):
         for b in (BATCH, 1):
             active = _build.cluster_occupancy(dev.index, b, rcw, kcw)
@@ -2912,7 +3459,12 @@ def main():
     phase_timescaling(dev, card, torch)
     phase_done(13)
 
-    print(f"smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 14. the layer zoo: ConvExp, FastFlow, SmoothTanh, B-spline -----
+    fastflow_rows, grouped_invflow_row, tanh_row = phase_zoo(dev, gen, card,
+                                                             torch)
+    phase_done(14)
+
+    print(f"smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -2958,7 +3510,17 @@ def main():
         dict(name="slr_inverse", route="cuda",
              source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
              replaces="inverse_flow_tpu/layers/activations.py:38",
-             launches=slr_launches, **slr_row)]}), flush=True)
+             launches=slr_launches, **slr_row),
+        # phase 14: FastFlow's N=1 TL launch at its three shapes, launches:
+        # its 3 train steps; the grouped InvFlow, launches: its forward and
+        # backward; SmoothTanh.inverse at imagenet32's three shapes
+        entry("chain_phases:fastflow", **fastflow_rows[0]),
+        entry("chain_phases:fastflow_backward", **fastflow_rows[1]),
+        entry("chain_phases:grouped_invflow", **grouped_invflow_row),
+        dict(name="smooth_tanh_inverse", route="cuda",
+             source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
+             replaces="inverse_flow_tpu/layers/activations.py:38",
+             **tanh_row)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

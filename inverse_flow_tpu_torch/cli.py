@@ -115,14 +115,14 @@ def _smoke_data_size(spec):
 def _smoke_model(spec, device, generator):
     """A miniature model of the same family as the experiment, by the JAX
     CLI's rule: the step kind from the name (SelfNorm, Conv1x1, FincFlow,
-    Emerging, else ``inv_conv_no_pad``), an FC or CNN stack for the
+    Emerging, ConvExp, else ``inv_conv_no_pad``), an FC or CNN stack for the
     ``fc`` and ``cnn`` names, else a Glow."""
     from .models.glow import build_cnn_flow, build_fc_flow, build_glow
     name = spec.name
     size = _smoke_data_size(spec)
     init = dict(generator=generator, device=device)
     kind_map = {"snf": "snf", "selfnorm": "snf", "conv1x1": "conv1x1",
-                "ff": "ff", "emerging": "emerging"}
+                "ff": "ff", "emerging": "emerging", "exponential": "convexp"}
     kind = "inv_conv_no_pad"
     for key, k in kind_map.items():
         if name.startswith(key) or f"_{key}_" in name:

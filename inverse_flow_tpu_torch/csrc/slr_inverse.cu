@@ -1,6 +1,6 @@
-// The inverse of the smooth leaky ReLU, y = alpha*x + (1-alpha)*softplus(x),
-// by Newton-Raphson from x = y, at most 100 steps, for Hopper (sm_90a),
-// float32.
+// The inverses of the smooth leaky ReLU, y = alpha*x + (1-alpha)*softplus(x),
+// and of the smooth tanh, y = tanh(alpha*x) + beta*x, by Newton-Raphson from
+// x = y, at most 100 steps, for Hopper (sm_90a), float32.
 //
 // Replaces the JAX package's SmoothLeakyRelu.inverse
 // (inverse_flow_tpu/layers/activations.py:38-46, :61-62), a jax.lax.fori_loop
@@ -18,10 +18,11 @@
 // with s = 1 for x >= 0, else e, which is f'(x) = alpha + (1-alpha)*sigmoid(x)
 // floored at 1e-2, times (1 + e). Built without --use_fast_math.
 //
-// Two kernels, chosen by ops/activations.py:slr_inverse:
+// Two kernels for the smooth leaky ReLU, chosen by
+// ops/activations.py:slr_inverse:
 //
-// slr_inverse_kernel (every call). A step's cost is one dependent chain of
-// about 530 cycles (the accurate expf, log1pf and an IEEE division), and from
+// newton_inverse_kernel<SlrStep>, "slr_inverse_kernel" (every call). A
+// step's cost is one dependent chain of about 530 cycles (the accurate expf, log1pf and an IEEE division), and from
 // x = y the iterate settles within a few steps for |y| <= 40, so running all
 // 100 recomputes a constant. Each warp stops once a step has moved every
 // lane's x by at most kExitTol * max(1, |x|) (__all_sync): 2 ulp of 1 below
@@ -41,6 +42,27 @@
 // slr_inverse_fixed_kernel, the first design: all `iters` steps, the IEEE
 // division, a grid of at most the resident threads with a grid stride. Kept as
 // a forced variant for the timings.
+//
+// newton_inverse_kernel<TanhStep>, the smooth tanh's inverse
+// (ops/activations.py:smooth_tanh_inverse). Replaces SmoothTanh.inverse
+// (inverse_flow_tpu/layers/activations.py:38-46, :117-121), the same 100-step
+// fori_loop on f(x) = tanh(alpha*x) + beta*x, f' = beta + alpha/cosh^2(alpha*x)
+// floored at 1e-2. The same early-exit kernel, templated on the step: one
+// thread per element, x in registers, the warp exit at kExitTol. The residual
+// f(x) - y keeps the accurate tanhf, which sets the fixed point. f' takes
+// 1/cosh^2 = 1 - t^2 from that same t, so a step costs tanhf's EX2 and RCP and
+// the quotient's __fdividef (its divisor lies in [0.01, alpha + beta]): 3
+// special-function operations, which chip_smoke.py reads from the SASS. f'
+// only sets the path: 1 - t^2 stays within 1e-7 * alpha of 1/cosh^2 (torch's
+// float32 tanh over |alpha*x| <= 40), against an f' of at least 1e-2; the
+// reference loop's coshf and IEEE division would add an EX2, two RCPs and a
+// slow path to each step. On the reference loop over y in [-40, 40] at alpha 1
+// the exit comes after 2.4 steps on the mean (beta 0.1 and 0.01), within
+// 2.4e-7 * max(1, |x|) of the 100-step x. For about 0.1% of y, where f' is
+// near beta (|alpha*x| of 2-4), the residual's rounding over f' keeps the
+// iterate in a cycle wider than the exit test (up to 4.2e-7 of |x| at beta
+// 0.1, 2.7e-6 at 0.01): those warps run all the steps and land within the
+// cycle (tests/test_torch_zoo.py, ops/activations.py:smooth_tanh_inverse_limit).
 
 #include <cuda_runtime.h>
 
@@ -54,22 +76,43 @@ constexpr float kFloor = 1e-2f;
 // max(1, |x|): 2^-22
 constexpr float kExitTol = 2.384185791015625e-7f;
 
+// One Newton step of the smooth leaky ReLU's inverse: the sigmoid's
+// 1/(1+e) folded into the quotient.
+struct SlrStep {
+  float alpha;
+  __device__ float operator()(float xi, float yi) const {
+    const float beta = 1.0f - alpha;
+    const float e = expf(-fabsf(xi));
+    const float f = alpha * xi + beta * (fmaxf(xi, 0.0f) + log1pf(e));
+    const float one_e = 1.0f + e;
+    const float s = xi >= 0.0f ? 1.0f : e;
+    const float den = fmaxf(alpha * one_e + beta * s, kFloor * one_e);
+    return xi - (f - yi) * __fdividef(one_e, den);
+  }
+};
+
+// One Newton step of the smooth tanh's inverse.
+struct TanhStep {
+  float alpha, beta;
+  __device__ float operator()(float xi, float yi) const {
+    const float t = tanhf(alpha * xi);
+    const float f = t + beta * xi;
+    const float fprime = fmaxf(beta + alpha * (1.0f - t * t), kFloor);
+    return xi - __fdividef(f - yi, fprime);
+  }
+};
+
+template <class Step>
 __global__ void __launch_bounds__(kThreads)
-slr_inverse_kernel(const float* __restrict__ y, float* __restrict__ x,
-                   long long n, float alpha, int iters) {
-  const float beta = 1.0f - alpha;
+newton_inverse_kernel(const float* __restrict__ y, float* __restrict__ x,
+                      long long n, Step step, int iters) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = i < n;  // every lane of a warp takes part in the vote
   const float yi = live ? y[i] : 0.0f;
   float xi = yi;
   for (int k = 0; k < iters; ++k) {
-    const float e = expf(-fabsf(xi));
-    const float f = alpha * xi + beta * (fmaxf(xi, 0.0f) + log1pf(e));
-    const float one_e = 1.0f + e;
-    const float s = xi >= 0.0f ? 1.0f : e;
-    const float den = fmaxf(alpha * one_e + beta * s, kFloor * one_e);
-    const float next = xi - (f - yi) * __fdividef(one_e, den);
+    const float next = step(xi, yi);
     const bool settled =
         !live || fabsf(next - xi) <= kExitTol * fmaxf(1.0f, fabsf(xi));
     xi = next;
@@ -101,22 +144,36 @@ slr_inverse_fixed_kernel(const float* __restrict__ y, float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x = the inverse of y (n floats each, device pointers) on `stream`, one
-// thread per element. Returns the CUDA error of the launch (0 when it was
-// taken).
-extern "C" int slr_inverse_f32(const float* y, float* x, long long n,
-                               float alpha, int iters, void* stream) {
+// One thread per element.
+template <class Step>
+int launch_newton(const float* y, float* x, long long n, Step step, int iters,
+                  void* stream) {
   const long long need = (n + kThreads - 1) / kThreads;
   if (need > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  slr_inverse_kernel<<<static_cast<int>(need), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(y, x, n, alpha,
-                                                            iters);
+  newton_inverse_kernel<<<static_cast<int>(need), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(y, x, n, step,
+                                                               iters);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The first design, all `iters` steps: the same arguments.
+}  // namespace
+
+// x = the smooth leaky ReLU's inverse of y (n floats each, device pointers)
+// on `stream`. Returns the CUDA error of the launch (0 when it was taken).
+extern "C" int slr_inverse_f32(const float* y, float* x, long long n,
+                               float alpha, int iters, void* stream) {
+  return launch_newton(y, x, n, SlrStep{alpha}, iters, stream);
+}
+
+// x = the smooth tanh's inverse of y: the same, with tanh's alpha and beta.
+extern "C" int smooth_tanh_inverse_f32(const float* y, float* x, long long n,
+                                       float alpha, float beta, int iters,
+                                       void* stream) {
+  return launch_newton(y, x, n, TanhStep{alpha, beta}, iters, stream);
+}
+
+// The first design of the smooth leaky ReLU's inverse, all `iters` steps:
+// the same arguments as slr_inverse_f32.
 extern "C" int slr_inverse_fixed_f32(const float* y, float* x, long long n,
                                      float alpha, int iters, void* stream) {
   int device = 0, sms = 0;

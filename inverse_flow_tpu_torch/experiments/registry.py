@@ -4,13 +4,16 @@ The entries of ``inverse_flow_tpu/experiments/registry.py`` that the port
 builds, under the same names and with the same ``ExperimentConfig``s (a
 copy here: the port imports nothing of the JAX package): the flagship
 and its FincFlow sibling, the ImageNet32 Glow, the real-data runs, and
-the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, the CNN
-and FC flows), and the Fig. 4 timescaling sweeps (their model is built per
-size inside ``experiments/timescaling.py``, so their ``build_model``
-gives None, as in JAX). ``build_model`` takes ``device`` (the CUDA card
-by default) and ``generator``; the other JAX names raise, naming the
-ROADMAP item that ports them. ``memory_speed`` is the CLI's own name, in
-no registry.
+the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, ConvExp,
+the CNN and FC flows), and the Fig. 4 timescaling sweeps (their model is
+built per size inside ``experiments/timescaling.py``, so their
+``build_model`` gives None, as in JAX). ``build_model`` takes ``device``
+(the CUDA card by default) and ``generator``; the other JAX names raise,
+naming the ROADMAP item that ports them. ``memory_speed`` is the CLI's
+own name, in no registry. ``FASTFLOW_IMAGENET32`` is the entry of
+``if_imagenet_multi_gpu``, whose FastFlow model is ported but whose
+config asks for data parallelism (ROADMAP 1.7): the name raises, and the
+spec is there for one-card runs with ``data_parallel=False``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..data import digits, imagenet, mnist, patches, synthetic
+from ..models.fastflow import build_fastflow
 from ..models.glow import build_cnn_flow, build_fc_flow, build_glow
 from ..train.config import ExperimentConfig
 
@@ -37,7 +41,6 @@ EXPERIMENTS = {}
 NOT_PORTED = {
     **dict.fromkeys(("if_glow_cifar", "ff_glow_cifar", "selfnorm_glow_cifar",
                      "conv1x1_glow_cifar"), "1.4a"),
-    **dict.fromkeys(("exponential_cnn_mnist",), "1.5a"),
     **dict.fromkeys(("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"),
                     "1.7"),
 }
@@ -148,7 +151,7 @@ _register(
                      recon_loss_weight=1.0, scheduler_name="None"))
 
 # ---------------------------------------------------------------------------
-# CNN MNIST (JAX registry.py:74-124)
+# CNN MNIST (JAX registry.py:74-136)
 # ---------------------------------------------------------------------------
 _register(
     "if_cnn_mnist",
@@ -200,6 +203,16 @@ _register(
                                 n_bins=10, tail_bound=70.0, **kw),
     mnist.load_data,
     ExperimentConfig(name="9L Emerging Spline MNIST", lr=1e-3,
+                     batch_size=100, modified_grad=False,
+                     add_recon_grad=False, scheduler_name="None"))
+
+_register(
+    "exponential_cnn_mnist",
+    lambda **kw: build_cnn_flow(MNIST, step_kind="convexp", num_blocks=3,
+                                block_size=3, activation="Spline",
+                                tail_bound=10.0, **kw),
+    mnist.load_data,
+    ExperimentConfig(name="9L Conv Exponential Spline MNIST", lr=1e-3,
                      batch_size=100, modified_grad=False,
                      add_recon_grad=False, scheduler_name="None"))
 
@@ -271,6 +284,18 @@ _register(
     ExperimentConfig(name="Conv1x1 Glow ImageNet32", lr=1e-3,
                      batch_size=100, modified_grad=False,
                      add_recon_grad=False, scheduler_name="None"))
+
+# FastFlow on ImageNet32 (JAX registry.py:298-317): registered under 1.7
+# for its data parallelism
+FASTFLOW_IMAGENET32 = ExperimentSpec(
+    "if_imagenet_multi_gpu",
+    lambda device="cuda", generator=None: build_fastflow(
+        IMAGENET32, n_blocks=3, block_size=48, actnorm=False,
+        coupling_width=512, generator=generator, device=device),
+    lambda **kw: imagenet.load_data(size=32, **kw),
+    ExperimentConfig(name="FastFlow ImageNet32 DP", lr=1e-5, batch_size=100,
+                     modified_grad=True, add_recon_grad=False,
+                     data_parallel=True, scheduler_name="None"))
 
 # ---------------------------------------------------------------------------
 # FC on the embedded real digits (JAX registry.py:381-389)

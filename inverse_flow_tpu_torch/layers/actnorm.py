@@ -1,6 +1,9 @@
 """ActNorm: per-channel affine with data-dependent initialization.
 
-Port of ``inverse_flow_tpu/layers/actnorm.py`` (4-D inputs).
+Port of ``inverse_flow_tpu/layers/actnorm.py``: ``ActNorm`` on 4-D
+inputs, ``ActNormFC`` on flat ones, and ``ActNormPlainLayer``, whose
+``forward`` gives the activation alone (inside conditioning networks,
+where no log-det is kept).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ class ActNorm(FlowLayer):
             torch.randn(n_dims, generator=generator, device=device))
 
     def data_init_with(self, p, x):
-        # population std (correction=0), as jnp.std
-        std, mean = torch.std_mean(x, dim=(0, 2, 3), correction=0)
+        # over every axis but the channel's; population std (correction=0),
+        # as jnp.std
+        dims = tuple(i for i in range(x.ndim) if i != 1)
+        std, mean = torch.std_mean(x, dim=dims, correction=0)
         with torch.no_grad():
             p["translation"].copy_(mean)
             p["log_scale"].copy_(torch.log(std + 1e-8))
@@ -40,3 +45,23 @@ class ActNorm(FlowLayer):
         t = p["translation"].reshape(1, -1, 1, 1)
         log_s = p["log_scale"].reshape(1, -1, 1, 1)
         return z * torch.exp(log_s) + t
+
+
+class ActNormFC(ActNorm):
+    """ActNorm on flat (B, n_dims) inputs, as (B, n_dims, 1, 1)."""
+
+    def forward_with(self, p, x, generator=None):
+        out, ldj = super().forward_with(p, x.reshape(-1, self.n_dims, 1, 1))
+        return out.reshape(-1, self.n_dims), ldj
+
+    def inverse_with(self, p, z, generator=None):
+        return super().inverse_with(
+            p, z.reshape(-1, self.n_dims, 1, 1)).reshape(-1, self.n_dims)
+
+
+class ActNormPlainLayer(ActNorm):
+    """ActNorm as a plain module: ``forward`` returns the activation and
+    drops the ldj."""
+
+    def forward(self, x, generator=None):
+        return self.forward_with(self.own_params(), x)[0]

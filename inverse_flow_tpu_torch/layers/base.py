@@ -25,6 +25,13 @@ whose parameters carry the names of the JAX params pytree:
   * ``recon_loss_with(p, x, sym, only_R)``: the layer-local reconstruction
     loss, (B,) (zeros by default; SelfNorm's when ``has_recon_loss``).
   * ``out_shape(shape)``: the output shape (no batch) for an input shape.
+  * ``update_carry_with(p)``: for a layer that ``has_carry`` (ConvExp),
+    refresh in place the non-learnable state it keeps among its
+    parameters, against the parameters' current values; the trainer calls
+    it after every optimizer step. Such state is a parameter with
+    ``requires_grad=False``: the optimizer and the weight clamp leave it
+    alone (the JAX ``carry_mask``), and the bridge and the checkpoints
+    carry it as any other.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ class FlowLayer(nn.Module):
     has_modified_grad: bool = False
     #: layers whose reconstruction loss joins the training loss
     has_recon_loss: bool = False
+    #: layers that carry non-learnable state among their parameters
+    has_carry: bool = False
 
     def own_params(self):
         """The layer's parameters, its child modules' included, by dotted
@@ -78,6 +87,14 @@ class FlowLayer(nn.Module):
 
     def data_init(self, x):
         self.data_init_with(self.own_params(), x)
+
+    def update_carry_with(self, p):
+        """Refresh the carried state in ``p`` in place; a no-op by
+        default."""
+        del p
+
+    def update_carry(self):
+        self.update_carry_with(self.own_params())
 
     def out_shape(self, shape):
         """The output shape (no batch dim) for input ``shape``."""

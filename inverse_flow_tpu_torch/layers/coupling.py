@@ -7,6 +7,10 @@ output; the inverse runs the same net on the first half and undoes the
 affine map. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` in the JAX layer): its activations are recomputed in
 the backward instead of kept; the values are the same.
+
+Also ``BSplineCoupling`` (``coupling.py:131-205``): the second half goes
+through a monotone cubic B-spline whose coefficients the first half's net
+gives per element.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .base import FlowLayer, sum_except_batch
+from .splines import clip01, monotone_cubic_b_spline
 
 
 def _kaiming_uniform(shape, generator, device):
@@ -74,3 +79,58 @@ class Coupling(FlowLayer):
     def inverse_with(self, p, z, generator=None):
         x1, z2, log_s, t = self._split_logs_t(p, z)
         return torch.cat([x1, (z2 - t) * torch.exp(-log_s)], dim=1)
+
+
+class BSplineCoupling(FlowLayer):
+    """Coupling whose transform is a per-element monotone cubic B-spline:
+    the first C//2 channels drive a conv net (conv3x3 -> ReLU -> conv1x1
+    -> ReLU -> zero-initialized conv3x3, ReZero log-scale) that gives
+    ``n_bins + 3`` spline coefficients for every element of the second
+    half; ``[-tail_bound, tail_bound]`` is mapped onto [0, 1] and back,
+    the identity outside. Zero init makes the spline the identity, so the
+    layer starts as one."""
+
+    def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
+                 n_bins: int = 8, tail_bound: float = 10.0,
+                 logscale_factor: float = 3.0, generator=None, device=None):
+        super().__init__()
+        c = input_size[0]
+        self.half_channels = c // 2
+        self.n_bins = n_bins
+        self.tail_bound = tail_bound
+        self.logscale_factor = logscale_factor
+        n_out = (c - c // 2) * (n_bins + 3)
+        self.w1 = _kaiming_uniform((width, c // 2, 3, 3), generator, device)
+        self.w2 = _kaiming_uniform((width, width, 1, 1), generator, device)
+        self.w3 = nn.Parameter(torch.zeros((n_out, width, 3, 3),
+                                           device=device))
+        self.b3 = nn.Parameter(torch.zeros((n_out,), device=device))
+        self.logs3 = nn.Parameter(torch.zeros((n_out,), device=device))
+
+    def _coeffs(self, p, x1):
+        """(B, C - C//2, H, W, n_bins + 3) spline coefficients."""
+        h = F.relu(F.conv2d(x1, p["w1"], padding=1))
+        h = F.relu(F.conv2d(h, p["w2"]))
+        h = F.conv2d(h, p["w3"], p["b3"], padding=1)
+        h = h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
+            1, -1, 1, 1)
+        b, _, hh, ww = h.shape
+        return h.reshape(b, -1, self.n_bins + 3, hh, ww).permute(0, 1, 3, 4,
+                                                                 2)
+
+    def _transform(self, p, x, inverse):
+        x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
+        tb = self.tail_bound
+        inside = (x2 > -tb) & (x2 < tb)
+        u = clip01((x2 + tb) / (2 * tb))
+        out, ld = monotone_cubic_b_spline(u, self._coeffs(p, x1),
+                                          inverse=inverse)
+        z2 = torch.where(inside, out * 2 * tb - tb, x2)
+        return (torch.cat([x1, z2], dim=1),
+                sum_except_batch(torch.where(inside, ld, 0.0)))
+
+    def forward_with(self, p, x, generator=None):
+        return self._transform(p, x, inverse=False)
+
+    def inverse_with(self, p, z, generator=None):
+        return self._transform(p, z, inverse=True)[0]

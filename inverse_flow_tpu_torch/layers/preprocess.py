@@ -1,5 +1,5 @@
-"""Preprocessing layers: dequantization, normalization, logit; their
-inverses floor, rescale and take the sigmoid.
+"""Preprocessing layers: dequantization, normalization, logit and sigmoid;
+their inverses floor, rescale, and take the sigmoid and the logit.
 
 Port of ``inverse_flow_tpu/layers/preprocess.py``.
 """
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..distributions import UniformDistribution
 from .base import FlowLayer, sum_except_batch
@@ -74,3 +75,18 @@ class LogitTransform(FlowLayer):
 
     def inverse_with(self, p, z, generator=None):
         return torch.sigmoid(z)
+
+
+class SigmoidTransform(FlowLayer):
+    """``z = sigmoid(x)`` with ``ldj = sum(log sigmoid(x) + log
+    sigmoid(-x))``, both in their stable forms; the inverse is the
+    logit."""
+
+    is_preprocessing = True
+
+    def forward_with(self, p, x, generator=None):
+        return torch.sigmoid(x), sum_except_batch(F.logsigmoid(x)
+                                                  + F.logsigmoid(-x))
+
+    def inverse_with(self, p, z, generator=None):
+        return torch.log(z) - torch.log1p(-z)

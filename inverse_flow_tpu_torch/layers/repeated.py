@@ -2,13 +2,14 @@
 axis, as in the JAX params pytree.
 
 Port of ``inverse_flow_tpu/layers/repeated.py:RepeatedBlock`` (forward,
-inverse, ``data_init``, the exact paths, the reconstruction loss and the
-exact-ldj correction): the JAX ``lax.scan`` over the stacked parameters
-becomes a loop over k that hands each step layer the k-th slices; indexing
-the stacked parameters is differentiable, so their gradients stack as the
-JAX ones do. ``remat`` checkpoints each step, as ``jax.checkpoint`` on the
-scan body: its activations are recomputed in the backward. Every step
-layer keeps its input's shape (the JAX init asserts it).
+inverse, ``data_init``, the exact paths, the reconstruction loss, the
+exact-ldj correction and the carried state): the JAX ``lax.scan`` over
+the stacked parameters becomes a loop over k that hands each step layer
+the k-th slices; indexing the stacked parameters is differentiable, so
+their gradients stack as the JAX ones do. ``remat`` checkpoints each
+step, as ``jax.checkpoint`` on the scan body: its activations are
+recomputed in the backward. Every step layer keeps its input's shape (the
+JAX init asserts it).
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ class RepeatedBlock(FlowLayer):
         self.remat = remat
         self.steps = nn.ModuleList(steps[0])
         for j, layer in enumerate(self.steps):
-            for name in list(layer.own_params()):
+            for name, first in list(layer.own_params().items()):
                 stacked = torch.stack(
                     [step[j].get_parameter(name).detach() for step in steps])
                 owner, _, leaf = name.rpartition(".")
-                setattr(layer.get_submodule(owner), leaf,
-                        nn.Parameter(stacked))
+                setattr(layer.get_submodule(owner), leaf, nn.Parameter(
+                    stacked, requires_grad=first.requires_grad))
 
     def _step_params(self, k):
         return [{n: t[k] for n, t in layer.own_params().items()}
@@ -140,6 +141,20 @@ class RepeatedBlock(FlowLayer):
                         pk, shape))(layer.own_params())
                 corr = corr + per_step.sum()
         return corr
+
+    @property
+    def has_carry(self):
+        return any(l.has_carry for l in self.steps)
+
+    @torch.no_grad()
+    def update_carry_with(self, p):
+        """Each carrying step layer's refresh on each of the K steps'
+        slices (the JAX block's ``vmap``), written into the stacked
+        parameters."""
+        for k in range(self.n_repeats):
+            for layer, pk in zip(self.steps, self._step_params(k)):
+                if layer.has_carry:
+                    layer.update_carry_with(pk)
 
     @torch.no_grad()
     def data_init_with(self, p, x):

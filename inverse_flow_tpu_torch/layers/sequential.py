@@ -2,8 +2,8 @@
 
 Port of ``inverse_flow_tpu/layers/sequential.py:Flow`` (forward,
 ``forward_verbose``, ``cheap_log_prob``, ``exact_ldj_correction``,
-``recon_loss``, ``data_init``, ``sample``, ``reconstruct``,
-``plot_filters``). The ldj of
+``recon_loss``, ``data_init``, ``update_carry``, ``sample``,
+``reconstruct``, ``plot_filters``). The ldj of
 each layer is added once. ``exact=True`` takes each layer's exact path
 where it has one (SelfNorm's dense slogdet and solve); the exact log-prob
 is the cheap one plus :meth:`Flow.exact_ldj_correction`, which depends on
@@ -172,6 +172,19 @@ class Flow(nn.Module):
                     write_png(out, filter_heatmap_grid(ka))
                     written.append(out)
         return written
+
+    @property
+    def has_carry(self):
+        return any(layer.has_carry for layer in self.layers)
+
+    @torch.no_grad()
+    def update_carry(self):
+        """Refresh every layer's carried state (ConvExp's power-iteration
+        vector) against the current weights; the trainer calls it after
+        each optimizer step."""
+        for layer in self.layers:
+            if layer.has_carry:
+                layer.update_carry()
 
     @torch.no_grad()
     def data_init(self, x, generator=None):

@@ -4,6 +4,8 @@ standard normal whose log-prob joins the layer's ldj.
 Port of ``inverse_flow_tpu/layers/splitprior.py:SplitPrior``: the inverse
 draws the factored-out half from that normal, concatenates it and inverts
 the coupling. Its parameters are the coupling's, under the same names.
+``SplitPriorFC`` is the same on flat inputs, ``input_size`` being (n, 1,
+1).
 """
 
 from __future__ import annotations
@@ -44,3 +46,21 @@ class SplitPrior(Coupling):
 
     def inverse(self, z, generator=None, noise=None):
         return self.inverse_with(self.own_params(), z, generator, noise)
+
+
+class SplitPriorFC(SplitPrior):
+    """SplitPrior on flat (B, n) inputs, as (B, n, 1, 1); the output is
+    (B, n // 2)."""
+
+    def out_shape(self, shape):
+        return (shape[0] // 2,)
+
+    def forward_with(self, p, x, generator=None):
+        n = self.half_channels * 2
+        out, ldj = super().forward_with(p, x.reshape(-1, n, 1, 1))
+        return out.reshape(-1, n // 2), ldj
+
+    def inverse_with(self, p, z, generator=None, noise=None):
+        n = self.half_channels * 2
+        return super().inverse_with(p, z.reshape(-1, n // 2, 1, 1),
+                                    generator, noise).reshape(-1, n)

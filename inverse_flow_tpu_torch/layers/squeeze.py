@@ -1,4 +1,5 @@
-"""Squeeze (2x2 space-to-depth), volume preserving.
+"""Squeeze (2x2 space-to-depth) and UnSqueeze (its inverse), volume
+preserving.
 
 Port of ``inverse_flow_tpu/layers/squeeze.py`` with the same element order.
 """
@@ -30,3 +31,15 @@ class Squeeze(FlowLayer):
 
     def inverse_with(self, p, z, generator=None):
         return depth_to_space(z)
+
+
+class UnSqueeze(FlowLayer):
+    def out_shape(self, shape):
+        c, h, w = shape
+        return (c // 4, h * 2, w * 2)
+
+    def forward_with(self, p, x, generator=None):
+        return depth_to_space(x), zeros_ldj(x)
+
+    def inverse_with(self, p, z, generator=None):
+        return space_to_depth(z)

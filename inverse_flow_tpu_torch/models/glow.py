@@ -6,11 +6,11 @@ Port of ``inverse_flow_tpu/models/glow.py`` (``build_glow``,
 ``inv_conv_auto``/``inv_conv_jacobi`` solvers, ``inv_conv`` (``InvFlow``
 TL), ``inv_flow_unit`` with its ``_exact``/``_fused``/``_jacobi``
 spellings (the ``imagenet32`` bench config), ``ff`` (``FincFlowUnit``),
-``snf``/``snf_cnn`` (SelfNorm 1x1 and 3x3), ``conv1x1`` and ``emerging``,
-and the activations ``Spline``, ``SLR`` and ``None``. The Glow stack is
+``snf``/``snf_cnn`` (SelfNorm 1x1 and 3x3), ``conv1x1``, ``emerging`` and
+``convexp``, and every activation of the JAX factory. The Glow stack is
 squeeze + K steps of [ActNorm, step layer, activation, Coupling] per
-block, a SplitPrior between blocks. Not ported: ``convexp``, the other
-activations and bf16 couplings (ROADMAP 1.5a, 1.5d, 1.4b).
+block, a SplitPrior between blocks. Not ported: bf16 couplings (ROADMAP
+1.4b).
 """
 
 from __future__ import annotations
@@ -18,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..distributions import GaussianPrior, UniformDistribution
-from ..layers import (ActNorm, Conv1x1, Coupling, Dequantization, Emerging,
-                      FincFlowUnit, Flow, InvFlow, InvFlowNoPad, InvFlowUnit,
-                      LogitTransform, Normalization, RepeatedBlock,
-                      SelfNormConv, SelfNormFC, SmoothLeakyRelu,
-                      SplineActivation, SplitPrior, Squeeze)
+from ..layers import (ActNorm, BSplineActivation, Conv1x1, ConvExp, Coupling,
+                      Dequantization, Emerging, FincFlowUnit, Flow, Identity,
+                      InvFlow, InvFlowNoPad, InvFlowUnit, LogitTransform,
+                      Normalization, RepeatedBlock, SelfNormConv, SelfNormFC,
+                      SmoothLeakyRelu, SplineActivation, SplitPrior, Squeeze)
 
 # the InvFlowUnit step kinds of the JAX ``_step_layer``, by solver
 _UNIT_SOLVERS = {"inv_flow_unit": "auto", "inv_flow_unit_exact": "exact",
@@ -31,29 +31,36 @@ _UNIT_SOLVERS = {"inv_flow_unit": "auto", "inv_flow_unit_exact": "exact",
 # the InvFlowNoPad step kinds, by solver
 _NO_PAD_SOLVERS = {"inv_conv_no_pad": "exact", "inv_conv_auto": "auto",
                    "inv_conv_jacobi": "jacobi"}
-# the JAX step kinds the port does not build yet
-_NOT_PORTED_KINDS = ("convexp",)
 
 
 def make_activation(name, n_bins=5, tail_bound=20.0, generator=None,
                     device=None):
-    """Activation factory of the JAX package (``SLR``, ``Spline`` and
-    ``None``, which gives no activation layer): a function of the step's
-    size, or None."""
+    """Activation factory of the JAX package: a function of the step's
+    size, or None for ``None``. ``Spline`` and ``SplineNat`` both give the
+    per-position RQ spline (JAX's ``SplineNat`` differs only in the
+    ``tile_params`` compiler switch); ``BSpline`` the B-spline activation,
+    ``SLR`` the smooth leaky ReLU, ``Identity`` the identity."""
     if name in (None, "None", "none"):
         return None
     if name == "SLR":
         return lambda size: SmoothLeakyRelu(alpha=0.3)
-    if name == "Spline":
+    if name in ("Spline", "SplineNat"):
         return lambda size: SplineActivation(
             tuple(size), n_bins=n_bins, tail_bound=tail_bound,
             generator=generator, device=device)
-    raise NotImplementedError(f"activation {name!r} is not ported")
+    if name == "BSpline":
+        return lambda size: BSplineActivation(
+            n_bins=n_bins, tail_bound=tail_bound, generator=generator,
+            device=device)
+    if name == "Identity":
+        return lambda size: Identity()
+    raise ValueError(f"unknown activation: {name}")
 
 
-def _step_layer(kind: str, c: int, kernel, **init):
-    """The step layer of kind ``kind`` on ``c`` channels; raises on a kind
-    that is not ported (NotImplementedError) or unknown (ValueError)."""
+def _step_layer(kind: str, c: int, kernel, size=None, **init):
+    """The step layer of kind ``kind`` on ``c`` channels (``size``: the
+    step's (C, H, W), which ConvExp needs); raises ValueError on an
+    unknown kind."""
     if kind in _NO_PAD_SOLVERS:
         return InvFlowNoPad(c, kernel, solver=_NO_PAD_SOLVERS[kind], **init)
     if kind == "inv_conv":
@@ -70,8 +77,8 @@ def _step_layer(kind: str, c: int, kernel, **init):
         return Conv1x1(c, **init)
     if kind == "emerging":
         return Emerging(c, **init)
-    if kind in _NOT_PORTED_KINDS:
-        raise NotImplementedError(f"step kind {kind!r} is not ported")
+    if kind == "convexp":
+        return ConvExp(tuple(size), **init)
     raise ValueError(f"unknown step layer: {kind}")
 
 
@@ -111,7 +118,8 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
 
         def make_step(size=size):
             step = [ActNorm(size[0], **init)] if actnorm else []
-            step.append(_step_layer(step_kind, size[0], kernel, **init))
+            step.append(_step_layer(step_kind, size[0], kernel, size,
+                                    **init))
             if act is not None:
                 step.append(act(size))
             step.append(Coupling(size, width=coupling_width,
@@ -140,7 +148,8 @@ def build_cnn_flow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
     size = tuple(data_size)
     for b in range(num_blocks):
         for l in range(block_size):
-            layers.append(_step_layer(step_kind, size[0], kernel, **init))
+            layers.append(_step_layer(step_kind, size[0], kernel, size,
+                                      **init))
             if act is not None and not (b == num_blocks - 1
                                         and l == block_size - 1):
                 layers.append(act(size))
@@ -169,7 +178,7 @@ def build_fc_flow(data_size=(1, 28, 28), num_layers=2,
             if act is not None and (l + 1) < num_layers:
                 layers.append(act((dim,)))
         else:
-            layers.append(_step_layer(kind, size[0], (3, 3), **init))
+            layers.append(_step_layer(kind, size[0], (3, 3), size, **init))
             if act is not None and (l + 1) < num_layers:
                 layers.append(act(size))
     final = (dim,) if kind == "snf_fc" else size

@@ -102,12 +102,16 @@ def chain_solve_lib(device_index: int) -> ctypes.CDLL:
 
 @functools.cache
 def slr_inverse_lib() -> ctypes.CDLL:
-    """``csrc/slr_inverse.cu``, built and loaded once per process."""
+    """``csrc/slr_inverse.cu`` (the smooth leaky ReLU's and the smooth
+    tanh's Newton inverses), built and loaded once per process."""
     lib = ctypes.CDLL(build("slr_inverse"))
+    ptrs = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
     for fn in (lib.slr_inverse_f32, lib.slr_inverse_fixed_f32):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ptrs + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.smooth_tanh_inverse_f32.argtypes = ptrs + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.smooth_tanh_inverse_f32.restype = ctypes.c_int
     return lib
 
 

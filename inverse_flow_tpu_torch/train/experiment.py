@@ -61,7 +61,9 @@ class Experiment:
         self.batch_time = StatsRecorder()
         self.sample_time = StatsRecorder()
         self.memory_tracker = MemoryTracker(self.device)
-        self.params = list(self.flow.parameters())
+        # the learnable parameters: carried state (ConvExp's u, no
+        # gradient) is neither updated by the optimizer nor clamped
+        self.params = [p for p in self.flow.parameters() if p.requires_grad]
         self.step = 0
         # GECO (JAX TrainState.recon_weight / recon_ema): the recon
         # term's weight and the moving average of the recon loss
@@ -145,10 +147,12 @@ class Experiment:
         ``cfg.modified_grad``), plus ``recon_weight`` times the mean
         NaN-scrubbed reconstruction loss when ``cfg.add_recon_grad`` and
         a layer has one (drawn on the same dequantization noise); its
-        backward; :func:`~inverse_flow_tpu_torch.train.optim.apply_grads`;
-        then, with ``cfg.recon_loss_lr`` > 0, GECO: ``recon_ema`` starts
-        at the first step's recon loss and then moves by ``recon_alpha``,
-        and ``recon_weight`` is multiplied by ``exp(recon_loss_lr *
+        backward; :func:`~inverse_flow_tpu_torch.train.optim.apply_grads`
+        on the learnable parameters; the carried state refreshed against
+        the new weights (:meth:`Flow.update_carry`); then, with
+        ``cfg.recon_loss_lr`` > 0, GECO: ``recon_ema`` starts at the first
+        step's recon loss and then moves by ``recon_alpha``, and
+        ``recon_weight`` is multiplied by ``exp(recon_loss_lr *
         recon_ema)``. Returns the loss as a 0-d device tensor; the recon
         loss stays in ``last_recon``."""
         cfg = self.cfg
@@ -172,6 +176,9 @@ class Experiment:
             total = loss + self.recon_weight * recon
         total.backward()
         apply_grads(cfg, self.optimizer, self.scheduler, self.params)
+        if self.flow.has_carry:
+            # carried state (ConvExp's u) follows the new weights
+            self.flow.update_carry()
         recon = recon.detach()
         if cfg.recon_loss_lr > 0.0:
             self.recon_ema = recon if self.step == 0 else (

@@ -244,6 +244,10 @@ def test_port_imports_no_jax():
         "cli", "data.digits", "data.patches", "experiments.real_data",
         "experiments.registry", "ops.activations", "train.checkpoint",
         "utils.profiling")} <= set(mods)
+    assert {f"inverse_flow_tpu_torch.{m}" for m in (
+        "layers.convexp", "layers.gaussianize", "layers.splines",
+        "layers.activations", "models.fastflow", "distributions")} \
+        <= set(mods)
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"sys.exit(sorted(n for n in sys.modules if n == 'jax' or "

@@ -269,7 +269,8 @@ SIZES = {"if_glow_mnist": (1, 28, 28), "ff_glow_mnist": (1, 28, 28),
          **dict.fromkeys(("exact_fc_mnist", "selfnorm_fc_mnist",
                           "if_cnn_mnist", "if_exact_cnn_mnist",
                           "exact_cnn_mnist", "selfnorm_cnn_mnist",
-                          "emerging_cnn_mnist", "selfnorm_glow_mnist",
+                          "emerging_cnn_mnist", "exponential_cnn_mnist",
+                          "selfnorm_glow_mnist",
                           "geco_selfnorm_glow_mnist", "conv1x1_glow_mnist",
                           "if_conv1x1_glow_mnist"), (1, 28, 28)),
          "selfnorm_glow_imagenet": (3, 32, 32),
@@ -280,15 +281,22 @@ SIZES = {"if_glow_mnist": (1, 28, 28), "ff_glow_mnist": (1, 28, 28),
 def test_registry_entry_matches_jax(name, monkeypatch):
     """The port's entry: the JAX entry's config, and a model whose
     parameters carry the JAX tree's names and shapes (JAX's by
-    ``eval_shape``; Conv1x1's init, a QR in numpy, is traced as
-    ``jnp.linalg.qr`` for it: the shapes are the same)."""
+    ``eval_shape``, or eagerly where the init cannot be traced; Conv1x1's
+    init, a QR in numpy, is traced as ``jnp.linalg.qr`` for it: the
+    shapes are the same)."""
     monkeypatch.setattr(jconv1x1, "_orthogonal_init", lambda rng, n: (
         jnp.linalg.qr(jax.random.normal(rng, (n, n)))[0]))
     ours, ref = tregistry.get_experiment(name), jregistry.get_experiment(name)
     assert ours.config.to_dict() == ref.config.to_dict()
     jflow = ref.build_model()
-    shapes = jax.eval_shape(lambda k: jflow.init(k, SIZES[name])[0],
-                            jax.random.PRNGKey(0))
+
+    def init(key):
+        return jflow.init(key, SIZES[name])[0]
+
+    # ConvExp's init sizes u by int(jnp.prod(...)), which a trace cannot
+    # give, so that model is initialised eagerly
+    shapes = (init(jax.random.PRNGKey(0)) if name == "exponential_cnn_mnist"
+              else jax.eval_shape(init, jax.random.PRNGKey(0)))
     flow = ours.build_model(device="cpu",
                             generator=torch.Generator().manual_seed(0))
     back = params_to_jax(flow)
@@ -309,8 +317,8 @@ def test_unported_names_raise():
         tregistry.EXPERIMENTS)
     with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.4"):
         tregistry.get_experiment("if_glow_cifar")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.5a"):
-        cli.main(["--name", "exponential_cnn_mnist", "--cpu"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
+        cli.main(["--name", "if_imagenet_multi_gpu", "--cpu"])
     with pytest.raises(KeyError):
         tregistry.get_experiment("no_such_experiment")
 

@@ -1,5 +1,6 @@
-"""The chain kernel's and the SLR-inverse kernel's wrappers, and the CUDA
-kernels on the card.
+"""The chain kernel's, the SLR-inverse and the SmoothTanh-inverse kernels'
+wrappers, the CUDA kernels on the card, and the layer zoo's reduced
+FastFlow and exponential_cnn_mnist steps on the card.
 
 This file imports no JAX, so the card's tests run where JAX is not
 installed:
@@ -15,6 +16,7 @@ float32 round-off of a solve whose outputs are of order 1-10; weight
 gradients (sums over batch and image) to 1e-4 * max|dW_ref|.
 """
 
+import copy
 from unittest import mock
 
 import numpy as np
@@ -377,3 +379,103 @@ def test_slr_kernel_floor_strides_and_checks(cuda_device):
         tact.slr_inverse(y.double(), 0.3)
     with pytest.raises(NotImplementedError):
         tact.slr_inverse(y.clone().requires_grad_(), 0.3)
+
+
+# ---------------------------------------------------------------------------
+# The SmoothTanh inverse kernel (csrc/slr_inverse.cu, TanhStep) and the
+# layer zoo's models on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", [0.1, 0.01])
+@pytest.mark.parametrize("b", [100, 1])
+@pytest.mark.parametrize("shape", SLR_SHAPES[:3])
+def test_smooth_tanh_kernel_matches_plain_loop(cuda_device, shape, b, beta):
+    """One launch at imagenet32's shapes, |y| up to 40, against the plain
+    loop on the card, within ``smooth_tanh_inverse_limit`` at every
+    element."""
+    y = _slr_y((b,) + shape).to(cuda_device)
+    before = tact.smooth_tanh_inverse.launches
+    x = tact.smooth_tanh_inverse(y, 1.0, beta)
+    torch.cuda.synchronize()
+    assert tact.smooth_tanh_inverse.launches == before + 1
+    hist = tact.smooth_tanh_inverse_history(y, 1.0, beta)
+    assert ((x - hist[-1]).abs()
+            <= tact.smooth_tanh_inverse_limit(y, hist, 1.0, beta)).all()
+    assert (tact.smooth_tanh(x, 1.0, beta) - y).abs().max().item() <= 1e-5
+    with pytest.raises(TypeError):
+        tact.smooth_tanh_inverse(y.double(), 1.0, beta)
+    assert tact.smooth_tanh_inverse(y[:0], 1.0, beta).shape == y[:0].shape
+
+
+@pytest.mark.cuda
+def test_fastflow_step_kernel_matches_plain_chain(cuda_device):
+    """A reduced FastFlow ((3, 16, 16), 2 levels x 2 steps, width 16):
+    log p(x) and the gradients of its mean through the kernel (4 launches
+    forward, 4 backward, all ``cluster``) against the plain chain, 1e-4
+    by norm."""
+    from inverse_flow_tpu_torch.models.fastflow import build_fastflow
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    flow = build_fastflow((3, 16, 16), n_blocks=2, block_size=2,
+                          coupling_width=16, generator=gen,
+                          device=cuda_device)
+    x = torch.randint(0, 256, (8, 3, 16, 16), generator=gen,
+                      device=cuda_device).float()
+    flow.data_init(x, gen)
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    xd = x + torch.rand(x.shape, generator=gen, device=cuda_device)
+    params = list(body.parameters())
+
+    def grads():
+        lp = body(xd)[1]
+        return (lp,) + torch.autograd.grad(lp.mean(), params)
+
+    before = _counts()
+    lp, *g = grads()
+    torch.cuda.synchronize()
+    _launched("cluster", 8, before)
+    with mock.patch.object(tfc, "chain_phases", tfc.chain_phases_reference):
+        lp_ref, *g_ref = grads()
+    assert torch.isfinite(lp).all()
+    assert ((lp - lp_ref).abs() / lp_ref.abs()).max().item() <= 1e-4
+    for a, r in zip(g, g_ref):
+        assert (a - r).norm().item() <= 1e-4 * max(r.norm().item(), 1e-6)
+
+
+@pytest.mark.cuda
+def test_exponential_cnn_step_matches_the_cpu(cuda_device, tmp_path):
+    """A reduced exponential_cnn_mnist (2 blocks x 2 ConvExp, (1, 8, 8)):
+    one train step on the card and on the CPU from the same weights; the
+    loss, every weight and every u after the step to 1e-4 by norm."""
+    from inverse_flow_tpu_torch.data.loader import ArrayLoader
+    from inverse_flow_tpu_torch.models.glow import build_cnn_flow
+    from inverse_flow_tpu_torch.train.config import ExperimentConfig
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    flow = build_cnn_flow((1, 8, 8), step_kind="convexp", num_blocks=2,
+                          block_size=2, activation="Spline", tail_bound=10.0,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    data = np.random.RandomState(0).randint(0, 256, (8, 1, 8, 8)).astype(
+        np.float32)
+    flow.data_init(torch.from_numpy(data), torch.Generator().manual_seed(1))
+    cfg = ExperimentConfig(name="convexp", lr=1e-3, batch_size=8,
+                           modified_grad=False, add_recon_grad=False,
+                           scheduler_name="None", log_timing=False,
+                           save_images=False, plot_recon=False,
+                           metrics_path=str(tmp_path / "m.jsonl"))
+    losses, states = [], []
+    for device in ("cpu", cuda_device):
+        exp = Experiment(copy.deepcopy(flow).to(device),
+                         *(ArrayLoader(data, 8) for _ in range(3)), cfg,
+                         device=device)
+        exp._data_initialized = True
+        body = Flow(exp.flow.base_distribution, exp.flow.layers[1:])
+        xd = torch.from_numpy(data + 0.5).to(device)
+        with mock.patch.object(exp, "flow", body):
+            losses.append(float(exp.train_step(xd)))
+        states.append({k: v.cpu() for k, v in exp.flow.state_dict().items()})
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+    for k, v in states[0].items():
+        assert (states[1][k] - v).norm() <= 1e-4 * max(v.norm(), 1e-6), k

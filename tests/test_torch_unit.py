@@ -262,8 +262,8 @@ def test_chain_bound_counts_the_products_the_data_needs(chw, orders):
 
 
 def test_build_glow_step_kinds_and_refusals():
-    """The unit step kinds build the JAX parameter names; kinds,
-    activations and coupling dtypes that are not ported raise."""
+    """The unit step kinds build the JAX parameter names; ``convexp`` and
+    ``SplineNat`` build; the coupling dtype that is not ported raises."""
     for kind in ("inv_flow_unit", "inv_flow_unit_exact",
                  "inv_flow_unit_fused", "inv_flow_unit_jacobi"):
         flow = build_glow(SIZE, **dict(MODEL_KW, step_kind=kind),
@@ -271,10 +271,13 @@ def test_build_glow_step_kinds_and_refusals():
         shape = flow.layers[5].get_parameter("steps.1.convs.3.w").shape
         assert shape == (2, 12, 12, 3, 3)
         assert isinstance(flow.layers[5].steps[2], tl.SmoothLeakyRelu)
-    for bad in (dict(step_kind="convexp"), dict(activation="SplineNat"),
-                dict(coupling_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            build_glow(SIZE, **dict(MODEL_KW, **bad), device="cpu")
+    flow = build_glow(SIZE, **dict(MODEL_KW, step_kind="convexp",
+                                   activation="SplineNat"), device="cpu")
+    assert isinstance(flow.layers[5].steps[1], tl.ConvExp)
+    assert isinstance(flow.layers[5].steps[2], tl.SplineActivation)
+    with pytest.raises(NotImplementedError):
+        build_glow(SIZE, **dict(MODEL_KW, coupling_dtype="bfloat16"),
+                   device="cpu")
 
 
 # ---------------------------------------------------------------------------
