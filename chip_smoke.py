@@ -40,6 +40,11 @@ from seed 0, batch 100 (104 for the patches):
   registry entry asks for data parallelism, so it runs with
   ``data_parallel=False``), the grouped ``InvFlow``, the SmoothTanh
   inverse and the B-spline layers,
+* the CIFAR-10 family at its registry configs on synthetic CIFAR-10
+  (``if_glow_cifar``: L=2 x K=16 ``InvFlowNoPad``, width 128, batch 140;
+  ``ff_glow_cifar``, ``selfnorm_glow_cifar``, ``conv1x1_glow_cifar``),
+  and ``bench.py``'s bf16-coupling configurations of imagenet32 at batch
+  100, 1024 and 4096 (every step checkpointed),
 
 in phases:
 
@@ -147,10 +152,26 @@ in phases:
      against its plain loop at imagenet32's shapes, B=100 and 1, beta 0.1
      and 0.01, timed beside it and the bound, and ``SmoothTanh.inverse``
      counted; ``BSplineActivation`` and ``BSplineCoupling`` (width 512)
-     forward and inverse, ms per call, launch calls and round trips.
+     forward and inverse, ms per call, launch calls and round trips;
+ 15. CIFAR-10 and bf16 (:func:`phase_cifar_bf16`): ``if_glow_cifar``'s
+     N=1 TL launch at B=140 (two waves of clusters, a ragged last
+     cluster), forward and backward, against its plain version, timed;
+     data init and 3 steps (32 + 32 launches a step), eval, a sample, the
+     step-1 gradients against the plain chain, ms/step against the plain
+     chain, a profiled step; ``ff_glow_cifar``'s 3 steps and its
+     ``Flow.sample`` (32 launches on the expanded groups-4 kernel against
+     the plain chain) and the grouped launch at CIFAR's shapes, timed;
+     3 steps each of ``selfnorm_glow_cifar`` and ``conv1x1_glow_cifar``;
+     ``imagenet32_bf16_couplings`` (B=100), ``imagenet32_b1024`` and
+     ``imagenet32_b4096``: data init and train steps with their launches,
+     ms/step, samples/s, peak memory and a profiled step, the four-order
+     launch at B=1024 and 4096 (9 and 35 waves) against its plain version,
+     timed; and the bf16 value check: bpd and gradients of the same
+     weights with float32 and with bf16 coupling nets.
 
-Every chain launch of the flagship, imagenet32, ff, Emerging and FastFlow
-paths and of the grouped ``InvFlow`` must go to the cluster kernel
+Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
+and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
+go to the cluster kernel
 (:func:`cluster_only`), every one of W1's model to the wide cluster
 kernel; the real-data runs print the variant of each launch
 shape. Every phase prints one line or more and its
@@ -557,8 +578,15 @@ def device_profile(name, unit, fn, n, card, torch):
     """``n`` calls of ``fn`` under ``torch.profiler``: host ms per call,
     device busy ms (the union of device intervals), idle share, device
     ops, kernel launch calls, and device ms by op, per ``unit``; the
-    profiler's table goes to ``chiprun_out/profile_<name>.txt``. Returns
-    (busy ms, launches) per call."""
+    table of device ms by op goes to ``chiprun_out/profile_<name>.txt``.
+    Returns (busy ms, launches) per call.
+
+    It reads the profiler's raw events (``kineto_results.events()``), not
+    ``prof.events()``/``key_averages()``: those build an event tree that
+    took 50 s of host time for one imagenet32 step on the H100's host
+    (this 3.6 s). A device op's time goes to the op that launched it
+    (``linked_correlation_id``), as ``key_averages``' self device time
+    does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -572,30 +600,42 @@ def device_profile(name, unit, fn, n, card, torch):
         prof_ms = 1e3 * (time.perf_counter() - t0) / n
     print(f"profile: {name} {prof_ms:.3f} ms/{unit} under the profiler "
           f"({n} calls) {card}", flush=True)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                  # union of device intervals, us
-        busy += max(0.0, b - max(a, end))
+
+    def api_call(op):                   # cudaLaunchKernel, cuLaunchKernel
+        return op[:4] == "cuda" or op[:2] == "cu" and op[2:3].isupper()
+
+    events = prof.profiler.kineto_results.events()
+    op_names, calls, launches, spans = {}, {}, 0, []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns(),
+                          e.linked_correlation_id()))
+        elif e.name().startswith("cudaLaunch"):
+            launches += 1
+        elif not api_call(e.name()):
+            op_names[e.correlation_id()] = e.name()
+            calls[e.name()] = calls.get(e.name(), 0) + 1
+    spans.sort()
+    busy, end, by_op = 0, float("-inf"), {}
+    for a, b, op in spans:              # union of device intervals, ns
+        busy += max(0, b - max(a, end))
         end = max(end, b)
-    avgs = prof.key_averages()
-    launches = sum(e.count for e in avgs if e.key.startswith("cudaLaunch"))
-    busy_ms = busy / 1e3 / n
+        key = op_names.get(op, "(no op)")
+        by_op[key] = by_op.get(key, 0) + b - a
+    busy_ms = busy / 1e6 / n
     print(f"profile: {name} device busy {busy_ms:.3f} ms/{unit} of "
           f"{prof_ms:.3f} (idle share {1 - busy_ms / prof_ms:.3f}); "
           f"{len(spans) / n:.0f} device ops and {launches / n:.0f} kernel "
           f"launch calls per {unit} {card}", flush=True)
-    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile: {name} device ms/{unit} by op: " + ", ".join(
-        f"{e.key} {e.self_device_time_total / n / 1e3:.3f} ({e.count // n})"
-        for e in ops), flush=True)
+    rows = [f"{k} {v / n / 1e6:.3f} ({calls.get(k, 0) // n})"
+            for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])]
+    print(f"profile: {name} device ms/{unit} by op: " + ", ".join(rows[:8]),
+          flush=True)
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, f"profile_{name}.txt"), "w") as f:
-        f.write(f"{card} {name}, {n} calls at batch {BATCH}\n")
-        f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
+        f.write(f"{card} {name}, {n} calls; device ms/{unit} by op "
+                f"(calls/{unit})\n" + "\n".join(rows[:60]) + "\n")
     return busy_ms, launches / n
 
 
@@ -768,9 +808,9 @@ def time_steps(label, exp, x, reps, rounds, card, torch):
 
     t = ab_ms({"kernel": step, "plain": step_plain}, reps=reps,
               rounds=rounds, torch=torch)
-    print(f"{label}: {t['kernel']:.3f} ms/step of {BATCH} (plain chain "
-          f"{t['plain']:.3f} ms/step), CUDA events, median of {rounds} "
-          f"turns of {reps} steps {card}", flush=True)
+    print(f"{label}: {t['kernel']:.3f} ms/step of {exp.cfg.batch_size} "
+          f"(plain chain {t['plain']:.3f} ms/step), CUDA events, median of "
+          f"{rounds} turns of {reps} steps {card}", flush=True)
     return step
 
 
@@ -842,7 +882,8 @@ def phase_train(dev, card, torch):
 
 
 def phase_imagenet32(dev, gen, card, torch):
-    """Phase 8: ``bench.py``'s ``imagenet32`` config, L=3 x K=48
+    """Phase 8: ``bench.py``'s ``imagenet32`` config (built through
+    ``experiments/bench_configs.py``), L=3 x K=48
     ``InvFlowUnit`` (144 four-order solves per pass), width 128, SLR,
     batch 100, on synthetic (3, 32, 32) images through
     ``data/imagenet.py``; random weights from seed 0.
@@ -858,8 +899,8 @@ def phase_imagenet32(dev, gen, card, torch):
     and one profiled step. Returns the forward and backward kernel rows
     of the summary line."""
     from inverse_flow_tpu_torch.data import ArrayLoader, imagenet
+    from inverse_flow_tpu_torch.experiments import bench_configs
     from inverse_flow_tpu_torch.layers import Flow
-    from inverse_flow_tpu_torch.models.glow import build_glow
     from inverse_flow_tpu_torch.ops import fused_chain
     from inverse_flow_tpu_torch.train.config import ExperimentConfig
     from inverse_flow_tpu_torch.train.experiment import Experiment
@@ -875,10 +916,11 @@ def phase_imagenet32(dev, gen, card, torch):
 
     def model():
         gen = torch.Generator(dev).manual_seed(0)
-        return build_glow((3, 32, 32), step_kind="inv_flow_unit",
-                          num_blocks=3, block_size=48, coupling_width=128,
-                          actnorm=True, split_prior=True, activation="SLR",
-                          generator=gen, device=dev), gen
+        flow, _, batch = bench_configs.build("imagenet32", device=dev,
+                                             generator=gen)
+        if batch != BATCH:
+            fail(f"bench_configs' imagenet32 batch {batch} is not {BATCH}")
+        return flow, gen
 
     cfg = ExperimentConfig(
         name="imagenet32", lr=1e-5, batch_size=BATCH, warmup_epochs=0,
@@ -997,19 +1039,20 @@ def grouped_operands(chw, b, gen, dev, torch):
     return x, [expand_grouped_kernel(w_eff, 4)]
 
 
-def grouped_rows(gen, dev, card, torch):
+def grouped_rows(gen, dev, card, torch, shapes=FLAGSHIP_SHAPES,
+                 batches=(BATCH, 1), label="ff"):
     """FincFlow's level-2 launch (N=1 TL on the expanded groups-4 kernel)
-    at its two shapes, at the sample batch and at one image: the kernel
-    against its plain version to ``1e-5 * max(1, max|y|)``, then its time
-    beside the plain version's, the library call's and the bound (which
-    counts nonzero products: the zero blocks lower the kernel's share of
-    it). Returns the summary entry (times at B=100, means over the shapes)
-    without its launch count."""
+    at its ``shapes`` (the flagship's by default), at each of ``batches``
+    (the sample batch and one image): the kernel against its plain version
+    to ``1e-5 * max(1, max|y|)``, then its time beside the plain version's,
+    the library call's and the bound (which counts nonzero products: the
+    zero blocks lower the kernel's share of it). Returns the summary entry
+    (times at B=100, means over the shapes) without its launch count."""
     from inverse_flow_tpu_torch.ops import fused_chain
 
     max_err, rows = 0.0, []
-    for b in (BATCH, 1):
-        for chw in FLAGSHIP_SHAPES:
+    for b in batches:
+        for chw in shapes:
             x, ws = grouped_operands(chw, b, gen, dev, torch)
             args = fused_chain.chain_inputs(x, ws, ("TL",))
             with torch.inference_mode():
@@ -1027,8 +1070,8 @@ def grouped_rows(gen, dev, card, torch):
             if b == BATCH:
                 rows.append((t["kernel"], t["streaming"], t["plain"],
                              t["library"], bound))
-            print(f"ff: kernel ({b},{','.join(map(str, chw))}) groups-4 TL: "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e}); "
+            print(f"{label}: kernel ({b},{','.join(map(str, chw))}) "
+                  f"groups-4 TL: max_abs_err {err:.3e} (tol {tol:.3e}); "
                   f"{launch_times(t, bound, bound_by, fma)}; library vs "
                   f"kernel max abs diff {lib_err:.3e} {card}", flush=True)
     return dict(mean_row(rows, bound_by), max_abs_err=max_err)
@@ -3177,6 +3220,333 @@ def phase_zoo(dev, gen, card, torch):
     return fastflow_rows, grouped_row, tanh_row
 
 
+# ---- 15. the CIFAR-10 family and the bf16-coupling configurations ------
+
+CIFAR_SHAPES = [(12, 16, 16), (24, 8, 8)]
+CIFAR_STEPS = 3
+BF16_BATCHES = (1024, 4096)
+BF16_STEPS = 2
+# the bf16 value check runs on weights that have left their init (there
+# w3, b3 and logs3 are 0 and the net's output is exactly 0 in either
+# dtype): after train steps, then with every coupling's w3, b3 and logs3
+# moved by this much normal noise (about 100 Adam steps at lr 1e-5; at
+# random init the model's latents are so large that 0.05 overflows
+# float32 and 0.005 moves its bpd of about 54 by 0.05 on the CPU); the
+# bounds on the bpd of each example and on the gradient's relative norm
+BF16_PERTURB = 1e-3
+BF16_BPD_TOL = 0.01
+BF16_GRAD_RTOL = 0.05
+
+
+def cluster_waves(label, shapes, orders, b, gen, dev, torch, _build):
+    """Prints, at each shape, the clusters of 8 rows a launch at batch
+    ``b`` needs against those resident at once, the waves that makes, and
+    the rows of the last cluster."""
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    for chw in shapes:
+        args = fused_chain.chain_inputs(*solve_operands(
+            chw, orders, gen, dev, torch, b), orders)
+        rcw, kcw = args[0].shape[2], args[4]
+        active = _build.cluster_occupancy(dev.index, b, rcw, kcw)
+        need = -(-b // fused_chain.CLUSTER_ROWS)
+        print(f"{label}: ({b},{','.join(map(str, chw))}) {'-'.join(orders)} "
+              f"RCW={rcw} KCW={kcw}: {need} clusters of "
+              f"{fused_chain.CLUSTER_ROWS} rows needed, {active} resident at "
+              f"once: {-(-need // active)} waves; the last cluster has "
+              f"{b - fused_chain.CLUSTER_ROWS * (need - 1)} rows", flush=True)
+
+
+def rows_at(label, shapes, orders, b, reps, rounds, gen, dev, card, torch,
+            _build):
+    """The chain kernel at batch ``b``, forward and the backward's launch,
+    at each shape: against its plain version (:func:`check_forward`,
+    :func:`check_backward`), its clusters and waves
+    (:func:`cluster_waves`), and timed beside the streaming kernel, the
+    plain version, the library call and the bound (:func:`time_rows`).
+    Returns the forward and backward summary entries without launches."""
+    on = dict(gen=gen, dev=dev, torch=torch)
+    cases = [(chw, orders) for chw in shapes]
+    errs = (check_forward(cases, f"{label}: kernel", b=b, **on),
+            check_backward(cases, f"{label}: backward", b=b, **on))
+    cluster_waves(label, shapes, orders, b, gen, dev, torch, _build)
+    return [dict(time_rows(shapes, orders, backward, reps, rounds, label,
+                           card=card, b=b, **on), max_abs_err=err)
+            for backward, err in ((False, errs[0]), (True, errs[1]))]
+
+
+def step_ms(label, exp, first, card, torch, profiled=True):
+    """Train ms/step of ``exp`` on the batch ``first``, the median of 2
+    turns after a warm-up step, and samples/s; then, if ``profiled``, one
+    step under the profiler (device busy, idle share, launch calls)."""
+    x = torch.as_tensor(first, device=exp.device)
+    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1, rounds=2,
+              torch=torch)["step"]
+    print(f"{label}: {t:.3f} ms/step of {exp.cfg.batch_size}, "
+          f"{1e3 * exp.cfg.batch_size / t:.1f} samples/s, median of 2 {card}",
+          flush=True)
+    if profiled:
+        device_profile(label, "step", lambda: exp.train_step(x), 1, card,
+                       torch)
+
+
+def phase_if_glow_cifar(dev, gen, card, torch, _build):
+    """``if_glow_cifar`` through the registry and ``Experiment`` (L=2 x
+    K=16 ``InvFlowNoPad`` 3x3, width 128, no ActNorm, RQ spline, batch
+    140, synthetic CIFAR-10): the N=1 TL launch at B=140, forward and
+    backward, at its two shapes (18 clusters, the last of 4 rows) against
+    its plain version and timed (:func:`rows_at`); data init and 3 train
+    steps (32 + 32 launches a step, all ``cluster``); eval over one batch
+    (32 launches); ``Flow.sample`` of 100 (no launch: the inverse is the
+    masked conv); the step-1 gradients against the plain chain; ms/step
+    against the plain chain and a profiled step. Returns the forward and
+    backward summary entries."""
+    from inverse_flow_tpu_torch.experiments.registry import get_experiment
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    label = "if_glow_cifar"
+    b = get_experiment(label).config.batch_size
+    rows = rows_at(label, CIFAR_SHAPES, ("TL",), b, 50, 4, gen, dev, card,
+                   torch, _build)
+    exp, first = baseline(label, dev, torch, CIFAR_STEPS * b, max_eval_ex=b)
+    n_params = sum(p.numel() for p in exp.flow.parameters())
+    values, init_state = train_baseline(label, exp, first, torch,
+                                        launches_per_step=32, init_passes=2)
+    launches = fused_chain.chain_phases.launches
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    bwd = 32 * len(values)
+    fused_chain.reset_launches()
+    bpd = exp.to_bpd(exp.eval_epoch(exp.val_loader))
+    torch.cuda.synchronize()
+    eval_launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} eval", eval_launches)
+    fused_chain.reset_launches()
+    with torch.inference_mode():
+        s = exp.flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    sample_launches = fused_chain.chain_phases.launches
+    print(f"{label}: {n_params} params; chain launches by variant {by} for "
+          f"data init + {len(values)} steps; eval over 1 batch of {b}: BPD "
+          f"{bpd:.4f}, {eval_launches} chain launches; Flow.sample of "
+          f"{BATCH}: {tuple(s.shape)}, values {s.min().item():.0f}.."
+          f"{s.max().item():.0f}, {sample_launches} chain launches",
+          flush=True)
+    if not math.isfinite(bpd) or eval_launches != 32:
+        fail(f"{label} eval: BPD {bpd}, {eval_launches} launches (32)")
+    if sample_launches or s.shape != (BATCH, 3, 32, 32) \
+            or not torch.isfinite(s).all():
+        fail(f"{label}: samples not finite or {sample_launches} launches")
+    exp.flow.load_state_dict(init_state)
+    x = check_grads(label, exp.flow, first, gen, dev, torch)
+    step = time_steps(label, exp, x, 1, 2, card, torch)
+    device_profile(label, "step", step, 1, card, torch)
+    return [dict(rows[0], launches=launches - bwd),
+            dict(rows[1], launches=bwd)]
+
+
+def phase_ff_cifar(dev, gen, card, torch):
+    """``ff_glow_cifar`` through the registry (L=2 x K=16 ``FincFlowUnit``,
+    width 512, RQ spline, recon weight 10, batch 100): data init and 3
+    train steps (no launch: the forward is a grouped conv), ms/step; then
+    ``Flow.sample`` of 100, FincFlow's level 2 on the chain kernel: 32
+    launches, all ``cluster``, finite, and kernel against plain chain on
+    the same draws; the grouped launch at CIFAR's two shapes against its
+    plain version and timed (:func:`grouped_rows`). Returns the summary
+    entry, its launches those of the ``Flow.sample``."""
+    from inverse_flow_tpu_torch.layers import Flow
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    label = "ff_glow_cifar"
+    exp, first = baseline(label, dev, torch, CIFAR_STEPS * BATCH,
+                          max_eval_ex=BATCH)
+    train_baseline(label, exp, first, torch)
+    step_ms(label, exp, first, card, torch)
+    flow = exp.flow
+    fused_chain.reset_launches()
+    with torch.inference_mode():
+        s = flow.sample(BATCH, gen)
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} Flow.sample", launches)
+    noise = sample_noise(flow, BATCH, gen, dev, torch)
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    with torch.inference_mode():
+        y = body.sample(BATCH, noise=noise)
+        with plain_chain(fused_chain):
+            y_ref = body.sample(BATCH, noise=noise)
+    rel = ((y - y_ref).norm() / y_ref.norm()).item()
+    print(f"{label}: Flow.sample of {BATCH}: {launches} chain launches (one "
+          f"per FincFlowUnit), values {s.min().item():.0f}.."
+          f"{s.max().item():.0f}; before the floor, kernel vs plain chain on "
+          f"the same draws |y - y_plain| / |y_plain| {rel:.3e} (tol "
+          f"{SAMPLE_RTOL:.0e})", flush=True)
+    if launches != 32 or s.shape != (BATCH, 3, 32, 32) \
+            or not torch.isfinite(s).all():
+        fail(f"{label}: {launches} launches (32) or samples not finite")
+    if not (torch.isfinite(y).all() and rel <= SAMPLE_RTOL):
+        fail(f"{label}: samples through the kernel disagree with the plain "
+             f"chain")
+    row = grouped_rows(gen, dev, card, torch, CIFAR_SHAPES, (BATCH,), label)
+    return dict(row, launches=launches)
+
+
+def phase_cifar_baselines(dev, torch, card):
+    """``selfnorm_glow_cifar`` (L=2 x K=4 SelfNorm 1x1, width 512, recon
+    weight 1000, clamp 0.001) and ``conv1x1_glow_cifar`` (L=2 x K=16
+    Conv1x1, width 512) at their registry configs: data init and 3 train
+    steps each (finite losses, no chain launch) and ms/step."""
+    for name in ("selfnorm_glow_cifar", "conv1x1_glow_cifar"):
+        exp, first = baseline(name, dev, torch, CIFAR_STEPS * BATCH,
+                              max_eval_ex=BATCH)
+        train_baseline(name, exp, first, torch)
+        step_ms(name, exp, first, card, torch, profiled=False)
+        del exp
+        torch.cuda.empty_cache()
+
+
+def bf16_run(name, steps, dev, card, torch):
+    """``bench.py``'s config ``name`` through ``bench_configs`` at its
+    batch, weights from seed 0, with ``imagenet32``'s training config (Adam
+    lr 1e-5, no scheduler, no clamp) on ``steps`` batches of synthetic
+    (3, 32, 32) images: data init and one epoch (a forward launch a unit a
+    pass, 144 at L=3 x K=48, and as many more a step when every step is
+    checkpointed; 144 backward a step; all ``cluster``), finite losses,
+    peak memory; then ms/step,
+    samples/s and a profiled step (:func:`step_ms`). Returns ((forward,
+    backward) launches, the Experiment, its first batch)."""
+    from inverse_flow_tpu_torch.data import ArrayLoader, synthetic
+    from inverse_flow_tpu_torch.experiments import bench_configs
+    from inverse_flow_tpu_torch.layers import RepeatedBlock
+    from inverse_flow_tpu_torch.train.config import ExperimentConfig
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    flow, shape, b = bench_configs.build(
+        name, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    blocks = [m for m in flow.modules() if isinstance(m, RepeatedBlock)]
+    remat = all(m.remat for m in blocks)
+    per_pass = sum(m.n_repeats for m in blocks)        # 144 at K=48, L=3
+    images = synthetic.smooth_images(steps * b, shape, seed=0)
+    train = ArrayLoader(images, b, shuffle=True, seed=0)
+    cfg = ExperimentConfig(
+        name=name, lr=1e-5, batch_size=b, warmup_epochs=0,
+        scheduler_name="None", weight_clamp=None, add_recon_grad=False,
+        plot_recon=False, save_images=False, seed=0,
+        metrics_path=os.path.join(HERE, "chiprun_out",
+                                  f"{name}_metrics.jsonl"))
+    exp = Experiment(flow, train, train, train, cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    values, _, launches, bwd, _ = counted_epoch(exp, images[:b], torch)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    fwd_need = per_pass * (2 + (1 + remat) * steps)
+    print(f"{name}: batch {b}, bf16 couplings, every step checkpointed "
+          f"{remat}: data init + {len(values)} steps: losses "
+          f"{', '.join(f'{v:.4f}' for v in values)}; chain kernel launches "
+          f"{launches - bwd} forward + {bwd} backward (all cluster); peak "
+          f"memory {peak_gb:.3f} GB {card}", flush=True)
+    if len(values) != steps or not all(map(math.isfinite, values)):
+        fail(f"{name}: losses {values}")
+    if (launches - bwd, bwd) != (fwd_need, per_pass * steps):
+        fail(f"{name}: expected {fwd_need} + {per_pass * steps} chain "
+             f"launches, got {launches - bwd} + {bwd}")
+    step_ms(name, exp, images[:b], card, torch)
+    return (launches - bwd, bwd), exp, images[:b]
+
+
+def bf16_value_check(exp, first, card, torch):
+    """``exp``'s model (imagenet32 with bf16 coupling nets, after its data
+    init and train steps) against the same model with float32 coupling
+    nets on the same weights: log p(x) of the batch ``first`` and the
+    gradients of its mean, through the kernel, on the same dequantization
+    noise; then again with every coupling's ``w3``, ``b3`` and ``logs3``
+    moved by ``BF16_PERTURB`` normal noise in both. Fails unless every
+    example's bpd is within ``BF16_BPD_TOL`` and the gradient within
+    ``BF16_GRAD_RTOL`` by relative norm."""
+    from inverse_flow_tpu_torch.experiments import bench_configs
+    from inverse_flow_tpu_torch.layers import Flow
+
+    dev = exp.device
+    gen = torch.Generator(dev).manual_seed(1)
+    flows = [bench_configs.build("imagenet32", device=dev,
+                                 generator=gen)[0], exp.flow]
+    flows[0].load_state_dict(exp.flow.state_dict())
+    x = torch.as_tensor(first, device=dev)
+    u = torch.rand(x.shape, generator=gen, device=dev)
+    dim = x[0].numel()
+    for what, noise in ((f"after data init and {exp.step} steps", 0.0),
+                        (f"w3, b3, logs3 then moved by {BF16_PERTURB} noise",
+                         BF16_PERTURB)):
+        if noise:
+            with torch.no_grad():
+                for n, p in flows[0].named_parameters():
+                    if n.rsplit(".", 1)[-1] in ("w3", "b3", "logs3"):
+                        p.add_(noise * torch.randn(p.shape, generator=gen,
+                                                   device=dev))
+            flows[1].load_state_dict(flows[0].state_dict())
+        out = []
+        for flow in flows:
+            body = Flow(flow.base_distribution, flow.layers[1:])
+            lp = body(x + u)[1]
+            g = torch.autograd.grad((-lp).mean(), list(body.parameters()))
+            out.append((lp.detach(), torch.cat([t.reshape(-1) for t in g])))
+        (lp32, g32), (lpbf, gbf) = out
+        dbpd = ((lp32 - lpbf).abs() / (math.log(2.0) * dim)).max().item()
+        bpd = (-lp32.mean() / (math.log(2.0) * dim)).item()
+        grel = ((gbf - g32).norm() / g32.norm()).item()
+        print(f"bf16: value check, imagenet32 (B={x.shape[0]}) with float32 "
+              f"vs bf16 coupling nets on the same weights ({what}) and "
+              f"noise: bpd {bpd:.4f}; max |dbpd| over the examples "
+              f"{dbpd:.3e} (bound {BF16_BPD_TOL}); gradient |g_bf16 - g| / "
+              f"|g| {grel:.3e} (bound {BF16_GRAD_RTOL}) {card}", flush=True)
+        if not (math.isfinite(bpd) and dbpd <= BF16_BPD_TOL
+                and grel <= BF16_GRAD_RTOL):
+            fail("bf16 couplings move the imagenet32 model's bpd or "
+                 "gradients past their bounds")
+
+
+def phase_cifar_bf16(dev, gen, card, torch, _build):
+    """Phase 15: the CIFAR-10 family (:func:`phase_if_glow_cifar`,
+    :func:`phase_ff_cifar`, :func:`phase_cifar_baselines`), and the
+    bf16-coupling configurations of ``bench.py`` at batch 100, 1024 and
+    4096 (:func:`bf16_run`), the first with the bf16 value check
+    (:func:`bf16_value_check`), the others with the four-order chain
+    kernel at their batch (:func:`rows_at`). Returns the summary line's
+    new entries by name."""
+    t0 = lap = time.perf_counter()
+
+    def part(what):
+        nonlocal lap
+        now = time.perf_counter()
+        print(f"cifar_bf16: {what} in {now - lap:.1f} s", flush=True)
+        lap = now
+        torch.cuda.empty_cache()
+
+    cifar_rows = phase_if_glow_cifar(dev, gen, card, torch, _build)
+    part("if_glow_cifar")
+    ff_row = phase_ff_cifar(dev, gen, card, torch)
+    part("ff_glow_cifar")
+    phase_cifar_baselines(dev, torch, card)
+    part("selfnorm_glow_cifar and conv1x1_glow_cifar")
+    _, exp, first = bf16_run("imagenet32_bf16_couplings", 3, dev, card, torch)
+    bf16_value_check(exp, first, card, torch)
+    del exp
+    part("imagenet32_bf16_couplings and the value check")
+    entries = {"chain_phases:cifar": cifar_rows[0],
+               "chain_phases:cifar_backward": cifar_rows[1],
+               "chain_phases:ff_cifar": ff_row}
+    for b, name in zip(BF16_BATCHES, ("imagenet32_b1024",
+                                      "imagenet32_b4096")):
+        rows = rows_at(f"imagenet32 B={b}", UNIT_SHAPES, UNIT, b, 2, 2, gen,
+                       dev, card, torch, _build)
+        (fwd, bwd), _, _ = bf16_run(name, BF16_STEPS, dev, card, torch)
+        entries[f"chain_phases:unit_b{b}"] = dict(rows[0], launches=fwd)
+        entries[f"chain_phases:unit_b{b}_backward"] = dict(rows[1],
+                                                           launches=bwd)
+        part(name)
+    print(f"cifar_bf16: phase 15 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return entries
+
+
 def newton_loop_mufu(lib):
     """Per step of ``newton_inverse_kernel`` in the built library ``lib``
     (``"SlrStep"``, ``"TanhStep"``), the MUFU instructions and the calls in
@@ -3464,7 +3834,11 @@ def main():
                                                              torch)
     phase_done(14)
 
-    print(f"smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 15. the CIFAR-10 family, the bf16 couplings at B=100-4096 -----
+    cifar_bf16 = phase_cifar_bf16(dev, gen, card, torch, _build)
+    phase_done(15)
+
+    print(f"smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -3520,7 +3894,14 @@ def main():
         dict(name="smooth_tanh_inverse", route="cuda",
              source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
              replaces="inverse_flow_tpu/layers/activations.py:38",
-             **tanh_row)]}), flush=True)
+             **tanh_row)] + [
+        # phase 15: if_glow_cifar's N=1 TL launch at B=140, launches: its 3
+        # train steps; ff_glow_cifar's grouped launch at CIFAR's shapes,
+        # launches: one Flow.sample of 100; the four-order launch at B=1024
+        # and 4096, launches: the 2 train steps of imagenet32_b1024 and
+        # imagenet32_b4096 (bf16 couplings)
+        entry(name, **row) for name, row in cifar_bf16.items()]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

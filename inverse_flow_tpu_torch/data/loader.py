@@ -1,19 +1,25 @@
-"""In-memory batch loader with per-epoch shuffling.
+"""In-memory batch loader with per-epoch shuffling and augmentation.
 
-Port of ``inverse_flow_tpu/data/loader.py:ArrayLoader`` without the native
-prefetch thread and the augmentation hooks (the scoring path uses
-neither). Batches are float32 numpy arrays of raw 0-255 values; the
-experiment moves them to its device.
+Port of ``inverse_flow_tpu/data/loader.py`` without the native prefetch
+thread: ``ArrayLoader`` with its ``augment`` hook, and the augmentations
+``random_flip_lr``, ``pad_translate_crop``, ``affine_translate_crop`` and
+``compose``. Batches are float32 numpy arrays of raw 0-255 values; the
+experiment moves them to its device. An augmentation draws from the
+loader's own ``RandomState`` after the shuffle, as the JAX loader's
+does, so the same seed gives the same batches.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 
 
 class ArrayLoader:
     def __init__(self, data: np.ndarray, batch_size: int, shuffle=False,
-                 seed: int = 0, drop_last=True):
+                 seed: int = 0, drop_last=True,
+                 augment: Optional[Callable] = None):
         if data.ndim < 2:
             raise ValueError(f"ArrayLoader: data of shape {data.shape} has "
                              f"no batch axis")
@@ -21,6 +27,7 @@ class ArrayLoader:
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.augment = augment
         self._rng = np.random.RandomState(seed)
         self.data_shape = tuple(data.shape[1:])
 
@@ -37,5 +44,69 @@ class ArrayLoader:
         stop = (len(idx) - self.batch_size + 1 if self.drop_last
                 else len(idx))
         for start in range(0, max(1, stop), self.batch_size):
-            yield self.data[idx[start:start + self.batch_size]].astype(
+            batch = self.data[idx[start:start + self.batch_size]].astype(
                 np.float32)
+            if self.augment is not None:
+                batch = self.augment(batch, self._rng)
+            yield batch
+
+
+def random_flip_lr(batch, rng):
+    """Mirror each image left-right with probability 1/2."""
+    flip = rng.rand(batch.shape[0]) < 0.5
+    batch[flip] = batch[flip][..., ::-1]
+    return batch
+
+
+def _crops(padded, oy, ox, h, w):
+    out = np.empty(padded.shape[:2] + (h, w), padded.dtype)
+    for i in range(padded.shape[0]):
+        out[i] = padded[i, :, oy[i]:oy[i] + h, ox[i]:ox[i] + w]
+    return out
+
+
+def pad_translate_crop(pad: int, mode: str = "edge"):
+    """Pad by ``pad`` (``np.pad`` ``mode``), then crop back to the original
+    size at integer offsets uniform on {0..2*pad} per axis (``mode=
+    'reflect'``, ``pad=1``: the reference's MNIST augmentation)."""
+
+    def fn(batch, rng):
+        b, _, h, w = batch.shape
+        padded = np.pad(batch, ((0, 0), (0, 0), (pad, pad), (pad, pad)),
+                        mode=mode)
+        offs = rng.randint(0, 2 * pad + 1, size=(b, 2))
+        return _crops(padded, offs[:, 0], offs[:, 1], h, w)
+
+    return fn
+
+
+def affine_translate_crop(pad: int, translate_frac: float = 0.04):
+    """Edge-pad by ``pad``, shift by an integer translate, center-crop: the
+    reference's CIFAR pipeline. The shift is a uniform draw on
+    ``[-f*(W+2p), f*(W+2p)]`` rounded to a pixel (x first, then y), clipped
+    to the pad, so for f=0.04, p=2 it is in {-1, 0, 1}."""
+
+    def fn(batch, rng):
+        b, _, h, w = batch.shape
+        padded = np.pad(batch, ((0, 0), (0, 0), (pad, pad), (pad, pad)),
+                        mode="edge")
+        hp, wp = h + 2 * pad, w + 2 * pad
+        dx = np.round(rng.uniform(-translate_frac * wp, translate_frac * wp,
+                                  size=b)).astype(int)
+        dy = np.round(rng.uniform(-translate_frac * hp, translate_frac * hp,
+                                  size=b)).astype(int)
+        np.clip(dx, -pad, pad, out=dx)
+        np.clip(dy, -pad, pad, out=dy)
+        return _crops(padded, pad - dy, pad - dx, h, w)
+
+    return fn
+
+
+def compose(*fns):
+    """The augmentations ``fns`` in order, on one ``RandomState``."""
+    def fn(batch, rng):
+        for f in fns:
+            batch = f(batch, rng)
+        return batch
+
+    return fn

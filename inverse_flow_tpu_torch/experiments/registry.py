@@ -3,7 +3,8 @@
 The entries of ``inverse_flow_tpu/experiments/registry.py`` that the port
 builds, under the same names and with the same ``ExperimentConfig``s (a
 copy here: the port imports nothing of the JAX package): the flagship
-and its FincFlow sibling, the ImageNet32 Glow, the real-data runs, and
+and its FincFlow sibling, the CIFAR-10 family, the ImageNet32 Glow, the
+real-data runs, and
 the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, ConvExp,
 the CNN and FC flows), and the Fig. 4 timescaling sweeps (their model is
 built per size inside ``experiments/timescaling.py``, so their
@@ -21,7 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from ..data import digits, imagenet, mnist, patches, synthetic
+from ..data import cifar10, digits, imagenet, mnist, patches, synthetic
 from ..models.fastflow import build_fastflow
 from ..models.glow import build_cnn_flow, build_fc_flow, build_glow
 from ..train.config import ExperimentConfig
@@ -38,12 +39,8 @@ class ExperimentSpec:
 EXPERIMENTS = {}
 
 # the JAX registry's other names, by the ROADMAP item that ports them
-NOT_PORTED = {
-    **dict.fromkeys(("if_glow_cifar", "ff_glow_cifar", "selfnorm_glow_cifar",
-                     "conv1x1_glow_cifar"), "1.4a"),
-    **dict.fromkeys(("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"),
-                    "1.7"),
-}
+NOT_PORTED = dict.fromkeys(("if_multiGPU_imagenet32",
+                            "if_imagenet_multi_gpu"), "1.7")
 
 
 def _register(name, build, load_data, config):
@@ -64,6 +61,7 @@ def get_experiment(name: str) -> ExperimentSpec:
 
 
 MNIST = (1, 28, 28)
+CIFAR = (3, 32, 32)
 IMAGENET32 = (3, 32, 32)
 DIGITS = (1, 8, 8)
 PATCHES = (3, 16, 16)
@@ -93,6 +91,52 @@ _register(
                      modified_grad=True, add_recon_grad=True,
                      sym_recon_grad=True, recon_loss_weight=10.0,
                      weight_clamp=0.01, scheduler_name="None"))
+
+# ---------------------------------------------------------------------------
+# CIFAR-10 family (JAX registry.py:208-252)
+# ---------------------------------------------------------------------------
+_register(
+    "if_glow_cifar",
+    lambda **kw: build_glow(CIFAR, step_kind="inv_conv_no_pad", num_blocks=2,
+                            block_size=16, coupling_width=128,
+                            actnorm=False, split_prior=True,
+                            activation="Spline", **kw),
+    cifar10.load_data,
+    ExperimentConfig(name="IF Glow CIFAR", lr=1e-4, batch_size=140,
+                     gamma=0.1097170, modified_grad=False,
+                     add_recon_grad=False, weight_clamp=0.01,
+                     warmup_epochs=2, scheduler_name="None"))
+
+_register(
+    "selfnorm_glow_cifar",
+    lambda **kw: build_glow(CIFAR, step_kind="snf", num_blocks=2,
+                            block_size=4, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    cifar10.load_data,
+    ExperimentConfig(name="SNF Glow CIFAR", lr=1e-3, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     sym_recon_grad=True, recon_loss_weight=1000.0,
+                     weight_clamp=0.001, scheduler_name="None"))
+
+_register(
+    "conv1x1_glow_cifar",
+    lambda **kw: build_glow(CIFAR, step_kind="conv1x1", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="None", **kw),
+    cifar10.load_data,
+    ExperimentConfig(name="Conv1x1 Glow CIFAR", lr=1e-3, batch_size=100,
+                     modified_grad=False, add_recon_grad=False,
+                     scheduler_name="None"))
+
+_register(
+    "ff_glow_cifar",
+    lambda **kw: build_glow(CIFAR, step_kind="ff", num_blocks=2,
+                            block_size=16, coupling_width=512, actnorm=True,
+                            split_prior=True, activation="Spline", **kw),
+    cifar10.load_data,
+    ExperimentConfig(name="FF Glow CIFAR", lr=1e-5, batch_size=100,
+                     modified_grad=True, add_recon_grad=True,
+                     recon_loss_weight=10.0, scheduler_name="None"))
 
 _register(
     "if_glow_imagenet32",

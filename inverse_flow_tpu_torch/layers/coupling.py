@@ -1,12 +1,16 @@
 """Affine coupling with the Glow-style zero-initialized conv net.
 
-Port of ``inverse_flow_tpu/layers/coupling.py:Coupling`` (float32): net
+Port of ``inverse_flow_tpu/layers/coupling.py:Coupling``: net
 conv3x3 -> ReLU -> conv1x1 -> ReLU -> Conv2dZero (zero init, ReZero
 log-scale); ``log_s = 2*tanh(h/2)``; even/odd channel split of the net
 output; the inverse runs the same net on the first half and undoes the
 affine map. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` in the JAX layer): its activations are recomputed in
 the backward instead of kept; the values are the same.
+``compute_dtype="bfloat16"`` (or ``"bf16"``) runs the net's three convs in
+bf16, as the JAX layer's mixed-precision policy: x1 and the three weights
+are cast per call, the net's output is cast back to float32 before ``b3``
+and the ReZero scale, and log_s, t, exp and the ldj stay float32.
 
 Also ``BSplineCoupling`` (``coupling.py:131-205``): the second half goes
 through a monotone cubic B-spline whose coefficients the first half's net
@@ -27,6 +31,16 @@ from .base import FlowLayer, sum_except_batch
 from .splines import clip01, monotone_cubic_b_spline
 
 
+def net_dtype(name):
+    """The torch dtype of a coupling net's ``compute_dtype``: float32, or
+    bf16 for the JAX spellings ``"bfloat16"`` and ``"bf16"``."""
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name == "float32":
+        return torch.float32
+    raise ValueError(f"unknown coupling compute_dtype {name!r}")
+
+
 def _kaiming_uniform(shape, generator, device):
     """nn.Conv2d's default weight init (kaiming_uniform, a=sqrt(5))."""
     bound = 1.0 / math.sqrt(shape[1] * shape[2] * shape[3])
@@ -40,12 +54,14 @@ class Coupling(FlowLayer):
 
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  logscale_factor: float = 3.0, remat_net: bool = False,
-                 generator=None, device=None):
+                 compute_dtype: str = "float32", generator=None,
+                 device=None):
         super().__init__()
         c = input_size[0]
         self.half_channels = c // 2
         self.logscale_factor = logscale_factor
         self.remat_net = remat_net
+        self.compute_dtype = net_dtype(compute_dtype)
         self.w1 = _kaiming_uniform((width, c // 2, 3, 3), generator, device)
         self.w2 = _kaiming_uniform((c, width, 1, 1), generator, device)
         self.w3 = nn.Parameter(torch.zeros((c, c, 3, 3), device=device))
@@ -53,9 +69,14 @@ class Coupling(FlowLayer):
         self.logs3 = nn.Parameter(torch.zeros((c,), device=device))
 
     def _net(self, p, x1):
-        h = F.relu(F.conv2d(x1, p["w1"], padding=1))
-        h = F.relu(F.conv2d(h, p["w2"]))
-        h = F.conv2d(h, p["w3"], p["b3"], padding=1)
+        dt = self.compute_dtype             # .to(float32) returns its input
+        h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
+        h = F.relu(F.conv2d(h, p["w2"].to(dt)))
+        if dt == torch.float32:
+            h = F.conv2d(h, p["w3"], p["b3"], padding=1)
+        else:
+            h = F.conv2d(h, p["w3"].to(dt), padding=1).float()
+            h = h + p["b3"].reshape(1, -1, 1, 1)
         return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
             1, -1, 1, 1)
 

@@ -3,7 +3,8 @@ standard normal whose log-prob joins the layer's ldj.
 
 Port of ``inverse_flow_tpu/layers/splitprior.py:SplitPrior``: the inverse
 draws the factored-out half from that normal, concatenates it and inverts
-the coupling. Its parameters are the coupling's, under the same names.
+the coupling. Its parameters are the coupling's, under the same names, and
+``compute_dtype`` is the coupling net's.
 ``SplitPriorFC`` is the same on flat inputs, ``input_size`` being (n, 1,
 1).
 """
@@ -19,9 +20,10 @@ from .coupling import Coupling
 class SplitPrior(Coupling):
 
     def __init__(self, input_size, width: int = 512, remat_net: bool = False,
-                 generator=None, device=None):
+                 compute_dtype: str = "float32", generator=None, device=None):
         super().__init__(input_size, width=width, remat_net=remat_net,
-                         generator=generator, device=device)
+                         compute_dtype=compute_dtype, generator=generator,
+                         device=device)
         c, h, w = input_size
         self.base = GaussianPrior((c // 2, h, w))
 

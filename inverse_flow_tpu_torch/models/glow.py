@@ -9,8 +9,9 @@ spellings (the ``imagenet32`` bench config), ``ff`` (``FincFlowUnit``),
 ``snf``/``snf_cnn`` (SelfNorm 1x1 and 3x3), ``conv1x1``, ``emerging`` and
 ``convexp``, and every activation of the JAX factory. The Glow stack is
 squeeze + K steps of [ActNorm, step layer, activation, Coupling] per
-block, a SplitPrior between blocks. Not ported: bf16 couplings (ROADMAP
-1.4b).
+block, a SplitPrior between blocks; ``coupling_dtype`` sets every
+Coupling's and SplitPrior's net precision (float32, or bf16 as
+``"bfloat16"``/``"bf16"``).
 """
 
 from __future__ import annotations
@@ -100,13 +101,12 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
                generator=None, device="cuda"):
     """Glow stack with the JAX builder's arguments and defaults
     (``remat``: checkpoint every step of a block; ``coupling_remat``:
-    checkpoint every coupling net). The parameters are drawn from
-    ``generator`` on ``device``, the CUDA card unless the caller names
-    another."""
-    if coupling_dtype != "float32":
-        raise NotImplementedError(
-            f"coupling_dtype {coupling_dtype!r} is not ported")
+    checkpoint every coupling net; ``coupling_dtype``: the coupling nets'
+    precision, ``"float32"``, ``"bfloat16"`` or ``"bf16"``). The parameters
+    are drawn from ``generator`` on ``device``, the CUDA card unless the
+    caller names another."""
     init = dict(generator=generator, device=device)
+    net = dict(remat_net=coupling_remat, compute_dtype=coupling_dtype)
     act = make_activation(activation, n_bins=n_bins, tail_bound=tail_bound,
                           **init)
     kernel = (if_kernel_size, if_kernel_size)
@@ -122,14 +122,14 @@ def build_glow(data_size=(1, 28, 28), step_kind="inv_conv_no_pad",
                                     **init))
             if act is not None:
                 step.append(act(size))
-            step.append(Coupling(size, width=coupling_width,
-                                 remat_net=coupling_remat, **init))
+            step.append(Coupling(size, width=coupling_width, **net,
+                                 **init))
             return step
 
         layers.append(RepeatedBlock(make_step, block_size, remat=remat))
         if split_prior and level < num_blocks - 1:
-            layers.append(SplitPrior(size, width=coupling_width,
-                                     remat_net=coupling_remat, **init))
+            layers.append(SplitPrior(size, width=coupling_width, **net,
+                                     **init))
             size = (size[0] // 2, size[1], size[2])
     return Flow(GaussianPrior(size), layers)
 

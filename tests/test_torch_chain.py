@@ -248,6 +248,8 @@ def test_port_imports_no_jax():
         "layers.convexp", "layers.gaussianize", "layers.splines",
         "layers.activations", "models.fastflow", "distributions")} \
         <= set(mods)
+    assert {"inverse_flow_tpu_torch.data.cifar10",
+            "inverse_flow_tpu_torch.experiments.bench_configs"} <= set(mods)
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"sys.exit(sorted(n for n in sys.modules if n == 'jax' or "

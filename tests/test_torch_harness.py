@@ -274,7 +274,10 @@ SIZES = {"if_glow_mnist": (1, 28, 28), "ff_glow_mnist": (1, 28, 28),
                           "geco_selfnorm_glow_mnist", "conv1x1_glow_mnist",
                           "if_conv1x1_glow_mnist"), (1, 28, 28)),
          "selfnorm_glow_imagenet": (3, 32, 32),
-         "conv1x1_glow_imagenet": (3, 32, 32), "real_digits_fc": DIGITS}
+         "conv1x1_glow_imagenet": (3, 32, 32), "real_digits_fc": DIGITS,
+         **dict.fromkeys(("if_glow_cifar", "ff_glow_cifar",
+                          "selfnorm_glow_cifar", "conv1x1_glow_cifar"),
+                         (3, 32, 32))}
 
 
 @pytest.mark.parametrize("name", sorted(SIZES))
@@ -315,8 +318,8 @@ def test_unported_names_raise():
         tregistry.NOT_PORTED) | {"memory_speed"}
     assert set(SIZES) | set(tregistry.TIMESCALING) == set(
         tregistry.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.4"):
-        tregistry.get_experiment("if_glow_cifar")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
+        tregistry.get_experiment("if_multiGPU_imagenet32")
     with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
         cli.main(["--name", "if_imagenet_multi_gpu", "--cpu"])
     with pytest.raises(KeyError):

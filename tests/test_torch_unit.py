@@ -263,7 +263,8 @@ def test_chain_bound_counts_the_products_the_data_needs(chw, orders):
 
 def test_build_glow_step_kinds_and_refusals():
     """The unit step kinds build the JAX parameter names; ``convexp`` and
-    ``SplineNat`` build; the coupling dtype that is not ported raises."""
+    ``SplineNat`` build; ``coupling_dtype`` reaches every coupling net
+    (the JAX spellings of bf16), and an unknown one raises."""
     for kind in ("inv_flow_unit", "inv_flow_unit_exact",
                  "inv_flow_unit_fused", "inv_flow_unit_jacobi"):
         flow = build_glow(SIZE, **dict(MODEL_KW, step_kind=kind),
@@ -275,8 +276,14 @@ def test_build_glow_step_kinds_and_refusals():
                                    activation="SplineNat"), device="cpu")
     assert isinstance(flow.layers[5].steps[1], tl.ConvExp)
     assert isinstance(flow.layers[5].steps[2], tl.SplineActivation)
-    with pytest.raises(NotImplementedError):
-        build_glow(SIZE, **dict(MODEL_KW, coupling_dtype="bfloat16"),
+    for name in ("bfloat16", "bf16"):
+        flow = build_glow(SIZE, **dict(MODEL_KW, coupling_dtype=name),
+                          device="cpu")
+        nets = [m for m in flow.modules() if isinstance(m, tl.Coupling)]
+        assert len(nets) == 3                  # two blocks' and a SplitPrior
+        assert all(m.compute_dtype == torch.bfloat16 for m in nets)
+    with pytest.raises(ValueError, match="float16"):
+        build_glow(SIZE, **dict(MODEL_KW, coupling_dtype="float16"),
                    device="cpu")
 
 
