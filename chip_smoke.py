@@ -36,15 +36,19 @@ from seed 0, batch 100 (104 for the patches):
 * the rest of the layer zoo: ``exponential_cnn_mnist`` (9 ConvExp layers
   and RQ splines, the carried power-iteration vector ``u``), the paper's
   FastFlow ImageNet32 model (L=3 x K=48 of ``InvFlow`` TL, ``Conv1x1``
-  and coupling width 512, ``GaussianizeSplit`` between levels; its
-  registry entry asks for data parallelism, so it runs with
-  ``data_parallel=False``), the grouped ``InvFlow``, the SmoothTanh
+  and coupling width 512, ``GaussianizeSplit`` between levels; here
+  with ``data_parallel=False``, in phase 16 data parallel), the grouped
+  ``InvFlow``, the SmoothTanh
   inverse and the B-spline layers,
 * the CIFAR-10 family at its registry configs on synthetic CIFAR-10
   (``if_glow_cifar``: L=2 x K=16 ``InvFlowNoPad``, width 128, batch 140;
   ``ff_glow_cifar``, ``selfnorm_glow_cifar``, ``conv1x1_glow_cifar``),
   and ``bench.py``'s bf16-coupling configurations of imagenet32 at batch
   100, 1024 and 4096 (every step checkpointed),
+* the two data-parallel registry names, ``if_multiGPU_imagenet32`` (L=3
+  x K=48 ``InvFlowNoPad``, width 256, RQ spline, batch 250) and
+  ``if_imagenet_multi_gpu`` (FastFlow, batch 100), in spawned processes
+  that each join a process group, and the native C++ library,
 
 in phases:
 
@@ -167,7 +171,21 @@ in phases:
      ms/step, samples/s, peak memory and a profiled step, the four-order
      launch at B=1024 and 4096 (9 and 35 waves) against its plain version,
      timed; and the bf16 value check: bpd and gradients of the same
-     weights with float32 and with bf16 coupling nets.
+     weights with float32 and with bf16 coupling nets;
+ 16. data parallel and native (:func:`phase_data_parallel`):
+     ``if_multiGPU_imagenet32``'s N=1 TL launch at B=250 (32 clusters, 3
+     waves), forward and backward, against its plain version, timed (rows
+     P, Pb); the registry config at full width and depth in a world of one
+     over NCCL (:func:`dp_one_rank`: data init, one eval batch, 3 steps
+     with 144 + 144 launches a step, all ``cluster``; step-1 gradients
+     against the plain chain; ms/step, a profiled step, peak memory; 2
+     steps bitwise equal to ``data_parallel=False``; FastFlow's 2 steps)
+     and a world of two over gloo on the one card (:func:`dp_two_ranks`:
+     125 a rank; the all-reduced step-1 gradient against the mean of two
+     one-process gradients; replicas equal after every step; ms/step, the
+     all-reduce's ms; FastFlow's 2 steps); the native library built from
+     ``native/src``, its float64 oracle against the kernel's solve, its
+     prefetcher against the numpy loader (:func:`check_native`).
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -1713,7 +1731,9 @@ def phase_real_data(dev, card, torch):
 
 def phase_resume(dev, whole_rows, card, torch):
     """A digits run saved after epoch 2 and loaded into a fresh Experiment
-    with the generator's and the train loader's states copied over: epoch
+    with the generator's state copied over and the train loader advanced
+    by the 2 epochs it served (its shuffle runs on the native prefetcher's
+    own thread, whose state cannot be copied): epoch
     3's mean loss against that of the 40-epoch run, which did not stop
     (``whole_rows``; its first epochs do the same work, since the epoch
     count changes nothing before the last), to ``RESUME_RTOL``; data init
@@ -1741,7 +1761,9 @@ def phase_resume(dev, whole_rows, card, torch):
     resumed = make(3, "_resumed")
     resumed.load(first.checkpoint_path)
     resumed.generator.set_state(first.generator.get_state())
-    resumed.train_loader._rng = copy.deepcopy(first.train_loader._rng)
+    for _ in range(2):
+        for _ in resumed.train_loader:
+            pass
     resumed.flow.data_init = None                 # must not run again
     resumed.run()
     whole = [r["train_loss"] for r in whole_rows[:3]]
@@ -3097,7 +3119,8 @@ def phase_fastflow(dev, gen, card, torch):
           f"{launches} for 3 passes (144 per pass); {host_s:.1f} s; peak "
           f"memory {eval_gb:.3f} GB", flush=True)
     if not math.isfinite(logpx) or launches != 144 * 3:
-        fail(f"{label}: log p {logpx}, {launches} launches (expected 432)")
+        fail(f"{label}: log p {logpx}, {launches} launches (expected "
+             f"{DP_PASS * 3})")
 
     body = Flow(flow.base_distribution, flow.layers[1:])
     x = torch.as_tensor(first, device=dev)
@@ -3584,6 +3607,391 @@ def _loop_mufu(code):
             sum(ins.startswith("CALL") for ins in body))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: data parallelism and the native library
+# ---------------------------------------------------------------------------
+DP_NAME = "if_multiGPU_imagenet32"
+DP_BATCH = 250
+DP_STEPS = 3
+FASTFLOW_NAME = "if_imagenet_multi_gpu"
+# chain launches a pass through either model: 3 levels x 48 N=1 TL solves
+DP_PASS = 144
+# the spawned ranks' deadline: a rank that hangs fails the phase
+DP_TIMEOUT = 600.0
+NATIVE_SHAPE = (100, 4, 14, 14)
+
+
+def _dp_rank_start(torch, rank):
+    """A spawned rank's set-up: the card (every rank on card 0: the phase
+    runs on one H100), TF32 off as in the parent, the chain kernel
+    loaded."""
+    from inverse_flow_tpu_torch.ops import _build
+
+    # cuBLAS is deterministic under use_deterministic_algorithms only with
+    # this workspace, set before its first handle
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.chain_solve_lib(dev.index)
+    return dev
+
+
+def _dp_experiment(name, dev, torch, n_train, **config):
+    """The registry's ``name`` as :func:`baseline` builds it, data
+    parallelism on (a group of one or more ranks)."""
+    exp, first = baseline(name, dev, torch, n_train, **config)
+    if not exp.cfg.data_parallel or not exp.distributed:
+        fail(f"{name}: the Experiment is not data parallel in its group")
+    return exp, first
+
+
+def _replicated(exp, what):
+    if not exp.replicas_equal():
+        fail(f"{exp.cfg.name}: the replicas differ {what}")
+
+
+def dp_one_rank(rank, size, card):
+    """Phase 16's world of one over NCCL (a spawned process): the main
+    path of ``if_multiGPU_imagenet32`` at its registry config (L=3 x K=48
+    ``InvFlowNoPad``, width 256, RQ spline, B=250, Adam lr 1e-5) on
+    synthetic ImageNet32, with every count set to 0 just before and read
+    just after: data init and one eval batch (144 launches a pass), 3
+    train steps (144 + 144 launches a step, all ``cluster``); the step-1
+    gradients against the plain chain; ms/step, device busy and peak
+    memory; then the same weights and batch trained 2 steps with and
+    without data parallelism, bit for bit; then FastFlow's 2 steps.
+    Returns the main path's launches and the timings."""
+    import torch
+
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    dev = _dp_rank_start(torch, rank)
+    label = "dp W=1"
+    exp, first = _dp_experiment(DP_NAME, dev, torch, DP_STEPS * DP_BATCH,
+                                max_eval_ex=DP_BATCH)
+    n_params = sum(p.numel() for p in exp.params)
+    fused_chain.reset_launches()
+    exp.maybe_data_init(first)
+    logpx = exp.eval_epoch(exp.val_loader)
+    torch.cuda.synchronize()
+    launches = fused_chain.chain_phases.launches
+    cluster_only(f"{label} data init + eval", launches)
+    print(f"{label}: {exp.cfg.name} (NCCL, rank {rank} of {size}), "
+          f"{n_params} params; data init + eval over 1 batch of "
+          f"{DP_BATCH}: log p(x) {logpx:.4f}, BPD {exp.to_bpd(logpx):.4f}; "
+          f"chain kernel launches {launches} for 3 passes ({DP_PASS} a pass)",
+          flush=True)
+    if not math.isfinite(logpx) or launches != DP_PASS * 3:
+        fail(f"{label}: log p {logpx}, {launches} launches (expected "
+             f"{DP_PASS * 3})")
+
+    values, _, launches, bwd, init_state = counted_epoch(exp, first, torch)
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    peak_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
+    print(f"{label}: {len(values)} steps of {DP_BATCH}: losses "
+          f"{', '.join(f'{v:.4f}' for v in values)}; chain kernel launches "
+          f"{launches - bwd} forward + {bwd} backward (by variant {by}); "
+          f"replicas equal {exp.replicas_equal()}; peak memory "
+          f"{peak_gb:.3f} GB {card}", flush=True)
+    if len(values) != DP_STEPS or not all(map(math.isfinite, values)):
+        fail(f"{label}: losses {values}")
+    if (launches - bwd, bwd) != (DP_PASS * DP_STEPS, DP_PASS * DP_STEPS):
+        fail(f"{label}: expected {DP_PASS} + {DP_PASS} chain launches a "
+             f"step, got {launches - bwd} + {bwd} in {DP_STEPS} steps")
+    main_launches = (launches - bwd, bwd)
+
+    exp.flow.load_state_dict(init_state)
+    x = check_grads(label, exp.flow, first, exp.generator, dev, torch)
+    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1, rounds=2,
+              torch=torch)["step"]
+    print(f"{label}: {t:.3f} ms/step of {DP_BATCH} (one rank, NCCL "
+          f"all-reduce of {n_params} gradients a step), median of 2 {card}",
+          flush=True)
+    busy, calls = device_profile("dp_w1", "step",
+                                 lambda: exp.train_step(x), 1, card, torch)
+    del exp, x
+    torch.cuda.empty_cache()
+
+    same = one_rank_bitwise(init_state, first, dev, torch)
+    print(f"{label}: data_parallel=True in a group of one against "
+          f"data_parallel=False, same weights and batch, deterministic "
+          f"algorithms: losses and every parameter bitwise equal after "
+          f"each of 2 steps: {same}", flush=True)
+    if same != [True, True]:
+        fail(f"{label}: a world of one is not the one-device run: {same}")
+    torch.cuda.empty_cache()
+
+    exp, first = _dp_experiment(FASTFLOW_NAME, dev, torch, 2 * BATCH)
+    values, _, launches, bwd, _ = counted_epoch(exp, first, torch)
+    print(f"{label}: {exp.cfg.name}, data init + {len(values)} steps of "
+          f"{BATCH}: losses {', '.join(f'{v:.4f}' for v in values)}; chain "
+          f"kernel launches {launches - bwd} forward + {bwd} backward",
+          flush=True)
+    if not all(map(math.isfinite, values)) or (launches - bwd, bwd) != (
+            DP_PASS * (2 + len(values)), DP_PASS * len(values)):
+        fail(f"{label}: FastFlow losses {values}, {launches - bwd} + {bwd} "
+             f"launches (expected {DP_PASS} x 2 + {DP_PASS} and {DP_PASS} "
+             f"a step)")
+    return dict(launches=main_launches, ms=t, busy=busy, calls=calls,
+                n_params=n_params, peak_gb=peak_gb)
+
+
+def one_rank_bitwise(state, first, dev, torch):
+    """Two Experiments of ``if_multiGPU_imagenet32`` on the weights
+    ``state`` (after data init), one with data parallelism in the group of
+    one and one without, 2 train steps each on the batch ``first`` under
+    ``torch.use_deterministic_algorithms`` (cuDNN's and the scatters'
+    backward otherwise sum in no fixed order): whether the losses and
+    every parameter are bitwise equal after each step."""
+    exps = []
+    for data_parallel in (True, False):
+        exp, _ = baseline(DP_NAME, dev, torch, DP_BATCH,
+                          data_parallel=data_parallel)
+        exp.flow.load_state_dict(state)
+        exp._data_initialized = True
+        exps.append(exp)
+    if not exps[0].distributed or exps[1].distributed:
+        fail("one_rank_bitwise: the two Experiments are not DP and one-device")
+    x = torch.as_tensor(first, device=dev)
+    same = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                losses = [exp.train_step(x) for exp in exps]
+                same.append(torch.equal(*losses) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        exps[0].flow.parameters(),
+                        exps[1].flow.parameters())))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    for w in {str(w.message) for w in caught}:
+        print(f"dp W=1: nondeterministic under the check: {w}", flush=True)
+    return same
+
+
+def dp_two_ranks(rank, size, card):
+    """Phase 16's world of two over gloo, both ranks on the one H100 (their
+    clusters share its SMs: no two-card number): ``if_multiGPU_imagenet32``
+    at B=250, 125 a rank, 2 steps. At step 1 the averaged gradient against
+    the mean of two one-process gradients (rank 0, on slice 0 with rank
+    0's generator state and on slice 1 with rank 1's, data parallelism
+    off), within ``GRAD_RTOL``; the replicas bitwise equal after every
+    step; ms/step, and the all-reduce's ms on the gradients alone. Then
+    FastFlow (B=100, 50 a rank) 2 steps: finite losses, replicas equal."""
+    import torch
+    import torch.distributed as dist
+
+    from inverse_flow_tpu_torch import parallel as dp
+    from inverse_flow_tpu_torch.train import experiment as texperiment
+
+    dev = _dp_rank_start(torch, rank)
+    label = f"dp W=2 rank {rank}"
+    exp, first = _dp_experiment(DP_NAME, dev, torch, 2 * DP_BATCH)
+    exp.maybe_data_init(first)
+    _replicated(exp, "after data init")
+    state = copy.deepcopy(exp.flow.state_dict())
+    gen_states = [None] * size
+    dist.all_gather_object(gen_states, exp.generator.get_state())
+    seen = {}
+    apply = texperiment.apply_grads
+
+    def recorded(cfg, optimizer, scheduler, params):
+        seen["grads"] = [p.grad.clone() for p in params]
+        return apply(cfg, optimizer, scheduler, params)
+
+    with mock.patch.object(texperiment, "apply_grads", recorded):
+        loss = exp.train_step(torch.as_tensor(exp.shard(first), device=dev))
+    _replicated(exp, "after step 1")
+    rel = None
+    if rank == 0:
+        rel = dp_grad_reference(state, first, gen_states, seen["grads"],
+                                dev, torch)
+    dp.barrier()
+    x = torch.as_tensor(exp.shard(first), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss2 = exp.train_step(x)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    _replicated(exp, "after step 2")
+    grads = [p.grad for p in exp.params]
+    dp.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dp.all_reduce_mean_(grads)
+    torch.cuda.synchronize()
+    reduce_ms = 1e3 * (time.perf_counter() - t0) / 3
+    n = sum(g.numel() for g in grads)
+    if rank == 0:
+        print(f"{label}: {exp.cfg.name} over gloo, {DP_BATCH // size} a "
+              f"rank: losses {float(loss):.4f}, {float(loss2):.4f}; replicas "
+              f"equal after each step; step 2 {step_ms:.3f} ms (host clock, "
+              f"synced); all-reduce of {n} gradients {reduce_ms:.3f} ms (one "
+              f"flat float32 buffer, through the host) {card}", flush=True)
+    if not (math.isfinite(float(loss)) and math.isfinite(float(loss2))):
+        fail(f"{label}: losses {float(loss)}, {float(loss2)}")
+    del exp, x, grads, seen, state
+    torch.cuda.empty_cache()
+
+    exp, first = _dp_experiment(FASTFLOW_NAME, dev, torch, 2 * BATCH)
+    exp.maybe_data_init(first)
+    losses = []
+    for i in range(2):
+        losses.append(float(exp.train_step(torch.as_tensor(
+            exp.shard(train_batch(exp, i)), device=dev))))
+        _replicated(exp, f"after FastFlow step {i + 1}")
+    if rank == 0:
+        print(f"{label}: {exp.cfg.name} over gloo, {BATCH // size} a rank: "
+              f"losses {', '.join(f'{v:.4f}' for v in losses)}; replicas "
+              f"equal after each step", flush=True)
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: FastFlow losses {losses}")
+    return dict(rel=rel, step_ms=step_ms, reduce_ms=reduce_ms, n=n)
+
+
+def train_batch(exp, i):
+    """The ``i``-th global batch of ``exp``'s (cut) train split."""
+    b = exp.cfg.batch_size
+    return exp.train_loader.data[i * b:(i + 1) * b]
+
+
+def dp_grad_reference(state, first, gen_states, grads, dev, torch):
+    """The mean of two one-process gradients of ``if_multiGPU_imagenet32``
+    on the weights ``state``: slice r of ``first`` with generator state
+    ``gen_states[r]``, data parallelism off; returns the largest
+    norm-relative difference of ``grads`` (the all-reduced ones) from
+    it."""
+    from inverse_flow_tpu_torch import parallel as dp
+    from inverse_flow_tpu_torch.train import experiment as texperiment
+
+    exp, _ = baseline(DP_NAME, dev, torch, DP_BATCH, data_parallel=False)
+    exp._data_initialized = True
+    ref = []
+
+    def recorded(cfg, optimizer, scheduler, params):
+        ref.append([p.grad.clone() for p in params])
+
+    for r, gen_state in enumerate(gen_states):
+        exp.flow.load_state_dict(state)
+        exp.generator.set_state(gen_state)
+        with mock.patch.object(texperiment, "apply_grads", recorded):
+            exp.train_step(torch.as_tensor(
+                dp.shard_batch(first, r, len(gen_states)), device=dev))
+    rel = max(((g - (a + b) / 2).norm() / ((a + b) / 2).norm()).item()
+              for g, a, b in zip(grads, *ref) if ((a + b) / 2).norm() > 0)
+    print(f"dp W=2: step-1 all-reduced gradients against the mean of two "
+          f"one-process gradients (each slice with its rank's generator "
+          f"state): max over {len(grads)} tensors of |g - g_mean| / "
+          f"|g_mean| {rel:.3e} (tol {GRAD_RTOL:.0e})", flush=True)
+    if not rel <= GRAD_RTOL:
+        fail("the all-reduced gradients disagree with the one-process mean")
+    return rel
+
+
+def check_native(dev, gen, card, torch):
+    """The port's native library: built from ``native/src`` into
+    ``build/native`` (g++); ``inv_conv_solve``'s float64 oracle against
+    the chain kernel's float32 solve at (100, 4, 14, 14) TL, within
+    ``1e-5 * max(1, max|y|)``; the native prefetcher against the numpy
+    loader on ``if_multiGPU_imagenet32``'s synthetic train split, host ms
+    per batch of 250."""
+    from inverse_flow_tpu_torch import native
+    from inverse_flow_tpu_torch.data import ArrayLoader
+    from inverse_flow_tpu_torch.experiments.registry import get_experiment
+    from inverse_flow_tpu_torch.ops import fused_chain
+
+    t0 = time.perf_counter()
+    path = native.build()
+    if not native.available():
+        fail("the native library does not load")
+    print(f"native: {os.path.relpath(path, HERE)} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    x, (w,) = solve_operands(NATIVE_SHAPE[1:], ("TL",), gen, dev, torch,
+                             NATIVE_SHAPE[0])
+    with torch.inference_mode():
+        y = fused_chain.fused_chain_solve(x, [w], ("TL",))
+    torch.cuda.synchronize()
+    ref = native.inv_conv_solve(x.double().cpu().numpy(),
+                                w.double().cpu().numpy())
+    err = float(abs(y.double().cpu().numpy() - ref).max())
+    scale = float(abs(ref).max())
+    print(f"native: inv_conv_solve (float64, C++) against the chain kernel "
+          f"(float32) at {NATIVE_SHAPE} TL: max abs err {err:.3e}, max rel "
+          f"err {err / scale:.3e} (tol {1e-5 * max(1.0, scale):.3e})",
+          flush=True)
+    if not err <= 1e-5 * max(1.0, scale):
+        fail("the chain kernel disagrees with the float64 oracle")
+
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        data = get_experiment(DP_NAME).load_data(batch_size=DP_BATCH)[0].data
+    times = {}
+    for prefetch in (True, False):
+        loader = ArrayLoader(data, DP_BATCH, shuffle=True, seed=0,
+                             native_prefetch=prefetch)
+        for _ in loader:                # one warm-up epoch
+            pass
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        times[prefetch] = 1e3 * (time.perf_counter() - t0) / n
+    print(f"native: train split {data.shape}, batches of {DP_BATCH}: native "
+          f"prefetcher {times[True]:.3f} ms/batch, numpy loader "
+          f"{times[False]:.3f} ms/batch (host clock, the step's host time "
+          f"not overlapped) {card}", flush=True)
+    return err / scale
+
+
+def phase_data_parallel(dev, gen, card, torch, _build):
+    """Phase 16: ``if_multiGPU_imagenet32``'s N=1 TL launch at B=250 (32
+    clusters in 3 waves, the last cluster of 2 rows), forward and
+    backward, against its plain version and timed (rows P, Pb,
+    :func:`rows_at`); the registry's two data-parallel names through
+    ``Experiment`` in spawned processes: a world of one over NCCL
+    (:func:`dp_one_rank`) and a world of two over gloo on the one card
+    (:func:`dp_two_ranks`); the native library (:func:`check_native`).
+    Returns the summary entries of rows P and Pb."""
+    from inverse_flow_tpu_torch import parallel as dp
+
+    t0 = time.perf_counter()
+    rows = rows_at(f"{DP_NAME} B={DP_BATCH}", UNIT_SHAPES, ("TL",),
+                   DP_BATCH, 20, 4, gen, dev, card, torch, _build)
+    torch.cuda.empty_cache()
+    out = os.path.join(HERE, "build", "dp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    runs = {}
+    for name, fn, size, backend in (("w1", dp_one_rank, 1, "nccl"),
+                                    ("w2", dp_two_ranks, 2, "gloo")):
+        t1 = time.perf_counter()
+        try:
+            runs[name] = dp.spawn(fn, size, f"file://{out}/{name}",
+                                  backend=backend, args=(card,),
+                                  timeout=DP_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"data parallel {name}: {e}")
+        print(f"dp: world of {size} over {backend} in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    w1, w2 = runs["w1"][0], runs["w2"][0]
+    print(f"dp: {DP_NAME} ms/step at B={DP_BATCH}: {w1['ms']:.3f} at a "
+          f"world of one (NCCL; busy {w1['busy']:.3f} ms, "
+          f"{w1['calls']:.0f} launch calls, peak {w1['peak_gb']:.3f} GB), "
+          f"{w2['step_ms']:.3f} at two ranks on one card (gloo); all-reduce "
+          f"of {w2['n']} gradients {w2['reduce_ms']:.3f} ms; step-1 "
+          f"gradient rel err {w2['rel']:.3e} {card}", flush=True)
+    oracle = check_native(dev, gen, card, torch)
+    print(f"dp: phase 16 in {time.perf_counter() - t0:.1f} s (oracle rel "
+          f"err {oracle:.3e})", flush=True)
+    fwd, bwd = w1["launches"]
+    return [dict(rows[0], launches=fwd), dict(rows[1], launches=bwd)]
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -3838,7 +4246,11 @@ def main():
     cifar_bf16 = phase_cifar_bf16(dev, gen, card, torch, _build)
     phase_done(15)
 
-    print(f"smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 16. data parallelism and the native library -------------------
+    dp_rows = phase_data_parallel(dev, gen, card, torch, _build)
+    phase_done(16)
+
+    print(f"smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -3900,7 +4312,12 @@ def main():
         # launches: one Flow.sample of 100; the four-order launch at B=1024
         # and 4096, launches: the 2 train steps of imagenet32_b1024 and
         # imagenet32_b4096 (bf16 couplings)
-        entry(name, **row) for name, row in cifar_bf16.items()]}),
+        entry(name, **row) for name, row in cifar_bf16.items()] + [
+        # phase 16: if_multiGPU_imagenet32's N=1 TL launch at B=250 (rows
+        # P, Pb), launches: its 3 train steps at a world of one over NCCL
+        # (in its spawned process, the counts set to 0 just before)
+        entry("chain_phases:dp_b250", **dp_rows[0]),
+        entry("chain_phases:dp_b250_backward", **dp_rows[1])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

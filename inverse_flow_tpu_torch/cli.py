@@ -11,6 +11,16 @@ JSON on the last line. ``memory_speed`` and the ``*timescaling`` sweeps
 run their own configuration (``--smoke``: the small one) and ignore the
 other flags, as in JAX; their records go to ``./memory_speed.jsonl`` and
 ``./<name>_timescale.jsonl``.
+
+The data-parallel configurations (``if_multiGPU_imagenet32``,
+``if_imagenet_multi_gpu``) run one process a card under ``torchrun``::
+
+    torchrun --standalone --nproc_per_node=N -m inverse_flow_tpu_torch.cli \
+        --name if_multiGPU_imagenet32
+
+Each process joins the group that ``torchrun`` describes and trains on
+``cuda:<LOCAL_RANK>`` (gloo on the CPU with ``--cpu``); rank 0 prints the
+summary. Without ``torchrun`` they train on one card.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ def main(argv=None):
                              "experiment's own checkpoint path)")
     args = parser.parse_args(argv)
 
-    from .experiments import EXPERIMENTS, get_experiment
+    from .experiments import EXPERIMENTS
 
     if args.list or not args.name:
         print("available experiments:")
@@ -47,9 +57,27 @@ def main(argv=None):
             print(f"  {name}")
         return 0
 
+    import torch.distributed as dist
+
+    from .parallel import init_from_env
+    owns_group = not dist.is_initialized()
+    device = init_from_env(cpu=args.cpu)
+    try:
+        return _run(args, device)
+    finally:
+        # a group this process joined from torchrun's environment
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device):
+    """The experiment ``args.name`` on ``device`` (its sweep, or
+    ``Experiment.run()`` of its registry entry); rank 0 prints the
+    summary."""
     import torch
 
-    device = "cpu" if args.cpu else "cuda"
+    from .experiments import get_experiment
+    from .parallel import world
 
     def _warn_ignored(kind):
         ignored = [f for f, v in (("--epochs", args.epochs),
@@ -103,7 +131,8 @@ def main(argv=None):
     if args.resume is not None:
         exp.load(args.resume or None)
     summary = exp.run()
-    print(json.dumps({k: _j(v) for k, v in summary.items()}))
+    if world().rank == 0:
+        print(json.dumps({k: _j(v) for k, v in summary.items()}))
     return 0
 
 

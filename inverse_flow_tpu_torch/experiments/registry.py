@@ -6,15 +6,16 @@ copy here: the port imports nothing of the JAX package): the flagship
 and its FincFlow sibling, the CIFAR-10 family, the ImageNet32 Glow, the
 real-data runs, and
 the paper's comparison baselines (SelfNorm, Conv1x1, Emerging, ConvExp,
-the CNN and FC flows), and the Fig. 4 timescaling sweeps (their model is
+the CNN and FC flows), the Fig. 4 timescaling sweeps (their model is
 built per size inside ``experiments/timescaling.py``, so their
-``build_model`` gives None, as in JAX). ``build_model`` takes ``device``
-(the CUDA card by default) and ``generator``; the other JAX names raise,
-naming the ROADMAP item that ports them. ``memory_speed`` is the CLI's
-own name, in no registry. ``FASTFLOW_IMAGENET32`` is the entry of
-``if_imagenet_multi_gpu``, whose FastFlow model is ported but whose
-config asks for data parallelism (ROADMAP 1.7): the name raises, and the
-spec is there for one-card runs with ``data_parallel=False``.
+``build_model`` gives None, as in JAX), and the two data-parallel
+configurations, ``if_multiGPU_imagenet32`` and ``if_imagenet_multi_gpu``
+(FastFlow; its spec is also ``FASTFLOW_IMAGENET32``), which train on one
+card or, under ``torchrun``, one process a card
+(:mod:`..parallel`). ``build_model`` takes ``device`` (the CUDA card by
+default) and ``generator``. Every name of the JAX registry is here
+(``NOT_PORTED`` is empty); ``memory_speed`` is the CLI's own name, in no
+registry.
 """
 
 from __future__ import annotations
@@ -38,9 +39,9 @@ class ExperimentSpec:
 
 EXPERIMENTS = {}
 
-# the JAX registry's other names, by the ROADMAP item that ports them
-NOT_PORTED = dict.fromkeys(("if_multiGPU_imagenet32",
-                            "if_imagenet_multi_gpu"), "1.7")
+# the JAX registry's names still to port, by the ROADMAP item that ports
+# them: none
+NOT_PORTED = {}
 
 
 def _register(name, build, load_data, config):
@@ -329,17 +330,30 @@ _register(
                      batch_size=100, modified_grad=False,
                      add_recon_grad=False, scheduler_name="None"))
 
-# FastFlow on ImageNet32 (JAX registry.py:298-317): registered under 1.7
-# for its data parallelism
-FASTFLOW_IMAGENET32 = ExperimentSpec(
+# ---------------------------------------------------------------------------
+# Data parallel (JAX registry.py:287-317): ImageNet32 Glow at width 256,
+# B=250, and FastFlow, B=100
+# ---------------------------------------------------------------------------
+_register(
+    "if_multiGPU_imagenet32",
+    lambda **kw: build_glow(IMAGENET32, step_kind="inv_conv_no_pad",
+                            num_blocks=3, block_size=48, coupling_width=256,
+                            actnorm=True, split_prior=True,
+                            activation="Spline", **kw),
+    lambda **kw: imagenet.load_data(size=32, **kw),
+    ExperimentConfig(name="IF Glow ImageNet32 DP", lr=1e-5, batch_size=250,
+                     modified_grad=True, add_recon_grad=False,
+                     data_parallel=True, scheduler_name="None"))
+
+_register(
     "if_imagenet_multi_gpu",
-    lambda device="cuda", generator=None: build_fastflow(
-        IMAGENET32, n_blocks=3, block_size=48, actnorm=False,
-        coupling_width=512, generator=generator, device=device),
+    lambda **kw: build_fastflow(IMAGENET32, n_blocks=3, block_size=48,
+                                actnorm=False, coupling_width=512, **kw),
     lambda **kw: imagenet.load_data(size=32, **kw),
     ExperimentConfig(name="FastFlow ImageNet32 DP", lr=1e-5, batch_size=100,
                      modified_grad=True, add_recon_grad=False,
                      data_parallel=True, scheduler_name="None"))
+FASTFLOW_IMAGENET32 = EXPERIMENTS["if_imagenet_multi_gpu"]
 
 # ---------------------------------------------------------------------------
 # FC on the embedded real digits (JAX registry.py:381-389)

@@ -95,7 +95,12 @@ class ExperimentConfig:
 
 def check_ported(cfg: ExperimentConfig):
     """Raise ``NotImplementedError`` on a setting the port cannot act on:
-    ``data_parallel`` (ROADMAP 1.7)."""
-    if cfg.data_parallel:
+    data parallelism by any other impl than ``"shard_map"``'s semantics
+    (the JAX ``"jit"`` impl, automatic partitioning of one global step, is
+    on ROADMAP's "Do not port" list)."""
+    if cfg.data_parallel and cfg.data_parallel_impl != "shard_map":
         raise NotImplementedError(
-            "data_parallel: the port runs on one device (ROADMAP 1.7)")
+            f"data_parallel_impl={cfg.data_parallel_impl!r}: the port's data "
+            f"parallelism has the 'shard_map' semantics only (one process a "
+            f"rank, one gradient all-reduce); the 'jit' path is on ROADMAP's "
+            f"\"Do not port\" list")

@@ -4,8 +4,10 @@ Port of ``inverse_flow_tpu/train/memory.py:MemoryTracker`` on the CUDA
 caching allocator's counters: allocated bytes, and the peak since the
 previous snapshot (``torch.cuda.max_memory_allocated``, reset by
 ``reset_peak_memory_stats`` after each read, so each epoch reports its own
-peak). The device is the CUDA card unless the caller names another; on a
-CPU device there is nothing to read: a snapshot raises and ``log_to`` logs
+peak). The device is the CUDA card unless the caller names another; a
+card named without an index is the process's current one (a data-parallel
+rank's ``cuda:<LOCAL_RANK>``), fixed when the tracker is made. On a CPU
+device there is nothing to read: a snapshot raises and ``log_to`` logs
 nothing.
 """
 
@@ -26,6 +28,9 @@ class MemoryTracker:
         if self.available and not torch.cuda.is_available():
             raise RuntimeError(f"MemoryTracker: no CUDA card for {device}")
         if self.available:
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             self._base = torch.cuda.memory_allocated(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
 

@@ -4,10 +4,11 @@ augmentations, ``data/cifar10.py`` on pickle batches written to
 models at reduced depth and width.
 
 Inputs come from numpy with a seed; weights cross with
-``params_from_jax``. The JAX loader is held on its numpy path
-(``native.available`` patched to False): the port has no native
-prefetcher, and the numpy path is the one that draws its shuffle and its
-augmentation from the loader's ``RandomState`` as the port does.
+``params_from_jax``. Both loaders shuffle the uint8 CIFAR data on the
+native prefetcher by default (the JAX module on a library that ``make``
+did not build: ``test_torch_native.py``'s ``jax_native`` fixture), and
+the augmentation draws from each loader's ``RandomState`` after it; the
+hook's test holds both on the numpy path.
 
 Tolerances: the loaders and augmentations exactly; log p of the models
 rtol 1e-5 (as ``test_torch_glow.py``), their gradients rel 1e-4 by norm
@@ -23,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import inverse_flow_tpu.native as jnative
 from inverse_flow_tpu.data import cifar10 as jcifar10
 from inverse_flow_tpu.data import loader as jloader
 from inverse_flow_tpu.experiments import registry as jregistry
@@ -37,6 +37,7 @@ from inverse_flow_tpu_torch.experiments import registry as tregistry
 from inverse_flow_tpu_torch.layers import Flow
 from inverse_flow_tpu_torch.models import glow as tglow
 from test_torch_baselines import _rel, _t
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 from test_torch_selfnorm import _grad_tree
 
 CIFAR_NAMES = ("if_glow_cifar", "ff_glow_cifar", "selfnorm_glow_cifar",
@@ -107,7 +108,8 @@ def test_array_loader_augment_hook_matches_jax(shuffle, drop_last):
     data = _batch(n=11, seed=3)
     aug = "cifar"
     kw = dict(shuffle=shuffle, seed=4, drop_last=drop_last)
-    ours = tloader.ArrayLoader(data, 4, augment=AUGMENTS[aug](tloader), **kw)
+    ours = tloader.ArrayLoader(data, 4, augment=AUGMENTS[aug](tloader),
+                               native_prefetch=False, **kw)
     ref = jloader.ArrayLoader(data, 4, augment=AUGMENTS[aug](jloader),
                               native_prefetch=False, **kw)
     _same_batches(ours, ref)
@@ -137,14 +139,13 @@ def _write_cifar(root, per_batch=6, n_test=5, nested=False):
 @pytest.mark.parametrize("data_aug,nested", [(True, False), (False, False),
                                              (True, True)])
 def test_cifar_load_data_matches_jax(data_aug, nested, tmp_path,
-                                     monkeypatch):
+                                     monkeypatch, jax_native):
     """From the same pickle batches both split 40k/10k (here 24/6 at
     ``train_split=24``) and give the same train (shuffled, augmented),
     val and test batches; both look in ``$IFT_DATA_DIR`` and its
     ``cifar10/`` subdirectory."""
     _write_cifar(tmp_path, nested=nested)
     monkeypatch.setenv("IFT_DATA_DIR", str(tmp_path))
-    monkeypatch.setattr(jnative, "available", lambda: False)
     kw = dict(data_aug=data_aug, batch_size=4, seed=2, train_split=24,
               synthetic_ok=False)
     ours, ref = tcifar10.load_data(**kw), jcifar10.load_data(**kw)
@@ -157,12 +158,12 @@ def test_cifar_load_data_matches_jax(data_aug, nested, tmp_path,
         _same_batches(a, b)
 
 
-def test_cifar_synthetic_fallback_matches_jax(tmp_path, monkeypatch):
+def test_cifar_synthetic_fallback_matches_jax(tmp_path, monkeypatch,
+                                              jax_native):
     """Without the batches both warn and fall back to the same synthetic
     (3, 32, 32) split of 2000 / 500 / 500; ``synthetic_ok=False``
     raises."""
     monkeypatch.setenv("IFT_DATA_DIR", str(tmp_path))
-    monkeypatch.setattr(jnative, "available", lambda: False)
     with pytest.warns(UserWarning, match="CIFAR-10 not found"):
         ours = tcifar10.load_data(batch_size=100, seed=3)
     with pytest.warns(UserWarning):

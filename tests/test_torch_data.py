@@ -1,8 +1,13 @@
 """The port's data loaders and config against the JAX package's.
 
-The port has its own numpy-only copies of the loaders the scoring path
-uses, so that it imports nothing of the JAX package. They must give the
-same arrays and the same batches, exactly.
+The port has its own numpy-only copies of the loaders (MNIST, ImageNet,
+synthetic, the toy densities, galaxy), so that it imports nothing of the
+JAX package. They must give the same arrays and the same batches,
+exactly: on the numpy path (``native_prefetch=False`` on both sides) and,
+for the loaders that shuffle uint8 data, on the native prefetcher that
+both take by default when the library is present (the JAX side on a
+library that ``make`` did not build now: ``test_torch_native.py``'s
+``jax_native`` fixture).
 """
 
 import dataclasses
@@ -14,21 +19,27 @@ import numpy as np
 import pytest
 import torch
 
+from inverse_flow_tpu.data import galaxy as jgalaxy
 from inverse_flow_tpu.data import imagenet as jimagenet
 from inverse_flow_tpu.data import loader as jloader
 from inverse_flow_tpu.data import mnist as jmnist
 from inverse_flow_tpu.data import synthetic as jsynthetic
+from inverse_flow_tpu.data import toy as jtoy
 from inverse_flow_tpu.train.config import ExperimentConfig as JaxConfig
+from inverse_flow_tpu_torch.data import galaxy as tgalaxy
 from inverse_flow_tpu_torch.data import imagenet as timagenet
 from inverse_flow_tpu_torch.data import loader as tloader
 from inverse_flow_tpu_torch.data import mnist as tmnist
 from inverse_flow_tpu_torch.data import synthetic as tsynthetic
+from inverse_flow_tpu_torch.data import toy as ttoy
 from inverse_flow_tpu_torch.distributions import GaussianPrior
 from inverse_flow_tpu_torch.layers import Flow
 from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.train.config import ExperimentConfig
 from inverse_flow_tpu_torch.train.experiment import Experiment
 from inverse_flow_tpu_torch.train.memory import MemoryTracker
+
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 
 
 def _batches(loader):
@@ -58,7 +69,7 @@ def test_array_loader_matches_jax(n, batch, shuffle, drop_last):
     data = np.random.RandomState(n).randint(0, 256, (n, 1, 3, 3))
     data = data.astype(np.float32)
     kw = dict(shuffle=shuffle, seed=3, drop_last=drop_last)
-    ours = tloader.ArrayLoader(data, batch, **kw)
+    ours = tloader.ArrayLoader(data, batch, native_prefetch=False, **kw)
     ref = jloader.ArrayLoader(data, batch, native_prefetch=False, **kw)
     for _ in range(2):                  # a second epoch reshuffles
         _assert_same_batches(ours, ref)
@@ -155,3 +166,62 @@ def test_entry_points_default_to_the_card():
         Experiment(flow, loader, loader, loader, ExperimentConfig())
     with pytest.raises((AssertionError, RuntimeError)):
         MemoryTracker()
+
+
+@pytest.mark.parametrize("name", [
+    "8gaussians", "2spirals", "checkerboard", "rings", "moons", "swissroll",
+    "circles", "sine", "1gaussian", "trimodal", "trimodal2", "smile",
+    "pinwheel"])
+def test_toy_densities_match_jax(name):
+    """Every toy density draws JAX's samples from the same seed, and the
+    loaders hold the same splits (seeds seed, seed + 1, seed + 2)."""
+    ours = ttoy.sample_toy(name, 257, seed=3)
+    assert ours.shape == (257, 2) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours, jtoy.sample_toy(name, 257, seed=3))
+    mine = ttoy.load_data(name, n_train=64, n_val=33, n_test=10,
+                          batch_size=16, seed=4)
+    theirs = jtoy.load_data(name, n_train=64, n_val=33, n_test=10,
+                            batch_size=16, seed=4)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(a.data, b.data)
+    assert mine[0]._prefetcher is None     # fractional: the numpy path
+    twin = jloader.ArrayLoader(theirs[0].data, 16, shuffle=True, seed=4,
+                               native_prefetch=False)
+    _assert_same_batches(mine[0], twin)
+    _assert_same_batches(mine[1], theirs[1])
+    with pytest.raises(ValueError, match="unknown toy density"):
+        ttoy.sample_toy("no_such_density", 4)
+
+
+def test_galaxy_prepare_and_load_match_jax(tmp_path, jax_native):
+    """``prepare`` on a few JPEGs per split (hidden files and other names
+    skipped) writes the arrays JAX's writes; ``load_data`` gives JAX's
+    batches, the train split shuffled on the native prefetcher in both;
+    an empty split raises."""
+    image = pytest.importorskip("PIL.Image")
+    rng = np.random.RandomState(0)
+    for split, n in (("training", 6), ("validation", 3), ("test", 3)):
+        d = tmp_path / "gm" / split
+        d.mkdir(parents=True)
+        for i in range(n):
+            arr = rng.randint(0, 255, (80, 70, 3), dtype=np.uint8)
+            image.fromarray(arr).save(d / f"img{i}.jpeg")
+        (d / ".hidden.jpeg").write_bytes(b"skip me")
+        (d / "notes.txt").write_text("skip me")
+    root = str(tmp_path / "gm")
+    ours = tgalaxy.prepare(root=root, resolution=(32, 24),
+                           out_path=str(tmp_path / "ours.pkl"))
+    ref = jgalaxy.prepare(root=root, resolution=(32, 24),
+                          out_path=str(tmp_path / "ref.pkl"))
+    with open(ours, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
+    mine, theirs = (tgalaxy.load_data(batch_size=2, path=ours),
+                    jgalaxy.load_data(batch_size=2, path=ref))
+    assert mine[0].data_shape == (3, 32, 24)
+    assert mine[0]._prefetcher is not None
+    for a, b in zip(mine, theirs):
+        _assert_same_batches(a, b)
+    assert max(b.max() for b in mine[0]) > 1.0      # raw 0..255
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="no jpeg"):
+        tgalaxy._read_images(str(tmp_path / "empty"))

@@ -220,17 +220,17 @@ def test_fastflow_sample_and_bridge_match_jax():
 
 
 def test_fastflow_registry_spec():
-    """``if_imagenet_multi_gpu`` raises under ROADMAP 1.7 (its config asks
-    for data parallelism); its spec builds the paper's model, whose
-    config is JAX's, and without data parallelism the port takes it."""
-    with pytest.raises(NotImplementedError, match=r"1\.7"):
-        tregistry.get_experiment("if_imagenet_multi_gpu")
-    spec = tregistry.FASTFLOW_IMAGENET32
+    """``if_imagenet_multi_gpu`` is registered (its spec is
+    ``FASTFLOW_IMAGENET32``) with JAX's config field by field, data
+    parallelism included, which the port takes; the spec builds the
+    paper's model."""
+    spec = tregistry.get_experiment("if_imagenet_multi_gpu")
+    assert spec is tregistry.FASTFLOW_IMAGENET32
     ref = jregistry.get_experiment("if_imagenet_multi_gpu")
-    assert spec.config.to_dict() == ref.config.to_dict()
-    with pytest.raises(NotImplementedError):
-        check_ported(spec.config)
-    check_ported(dataclasses.replace(spec.config, data_parallel=False))
+    for f in dataclasses.fields(ref.config):
+        assert getattr(spec.config, f.name) == getattr(ref.config, f.name)
+    assert spec.config.data_parallel
+    check_ported(spec.config)
     flow = spec.build_model(device="meta")
     kinds = [type(l).__name__ for l in flow.layers]
     assert kinds.count("GaussianizeSplit") == 2

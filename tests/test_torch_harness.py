@@ -14,6 +14,7 @@ rtol 1e-5 (as ``test_torch_glow.py``); the eval log p(x) over 3 draws rtol
 1e-5.
 """
 
+import dataclasses
 import json
 import os
 
@@ -238,7 +239,8 @@ def test_config_fields_act_or_raise(tmp_path):
     """``verbose`` logs each layer's mean ldj; ``profile_dir`` writes a
     trace of epoch 1; ``save_images`` with a multiple of ``vis_epochs``
     within the run writes the filter heatmaps (``Flow.plot_filters``);
-    ``data_parallel`` raises."""
+    ``data_parallel`` with ``data_parallel_impl="jit"`` raises (ROADMAP's
+    "Do not port" list)."""
     exp = _small_experiment(tmp_path, verbose=True, plot_recon=False,
                             save_images=False,
                             profile_dir=str(tmp_path / "prof"))
@@ -255,8 +257,9 @@ def test_config_fields_act_or_raise(tmp_path):
     assert filters and all(f.startswith("e0001_") for f in filters)
     check_ported(exp.cfg.replace(vis_epochs=2))
     check_ported(exp.cfg.replace(save_images=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        _small_experiment(tmp_path, data_parallel=True)
+    with pytest.raises(NotImplementedError, match="Do not port"):
+        _small_experiment(tmp_path, data_parallel=True,
+                          data_parallel_impl="jit")
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +280,8 @@ SIZES = {"if_glow_mnist": (1, 28, 28), "ff_glow_mnist": (1, 28, 28),
          "conv1x1_glow_imagenet": (3, 32, 32), "real_digits_fc": DIGITS,
          **dict.fromkeys(("if_glow_cifar", "ff_glow_cifar",
                           "selfnorm_glow_cifar", "conv1x1_glow_cifar"),
-                         (3, 32, 32))}
+                         (3, 32, 32)),
+         "if_multiGPU_imagenet32": (3, 32, 32)}
 
 
 @pytest.mark.parametrize("name", sorted(SIZES))
@@ -311,17 +315,20 @@ def test_registry_entry_matches_jax(name, monkeypatch):
 
 
 def test_unported_names_raise():
-    """Every JAX name is registered in the port or raises naming the
-    ROADMAP item that ports it; an unknown name raises KeyError."""
-    jax_names = set(jregistry.EXPERIMENTS) | {"memory_speed"}
-    assert jax_names == set(tregistry.EXPERIMENTS) | set(
-        tregistry.NOT_PORTED) | {"memory_speed"}
-    assert set(SIZES) | set(tregistry.TIMESCALING) == set(
-        tregistry.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
-        tregistry.get_experiment("if_multiGPU_imagenet32")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7"):
-        cli.main(["--name", "if_imagenet_multi_gpu", "--cpu"])
+    """Every JAX name is registered in the port (``NOT_PORTED`` is empty),
+    the two data-parallel ones with JAX's config field by field; an
+    unknown name raises KeyError."""
+    assert tregistry.NOT_PORTED == {}
+    assert set(jregistry.EXPERIMENTS) == set(tregistry.EXPERIMENTS)
+    assert set(SIZES) | set(tregistry.TIMESCALING) | {
+        "if_imagenet_multi_gpu"} == set(tregistry.EXPERIMENTS)
+    for name in ("if_multiGPU_imagenet32", "if_imagenet_multi_gpu"):
+        ours = tregistry.get_experiment(name).config
+        ref = jregistry.get_experiment(name).config
+        assert ours.data_parallel and ours.data_parallel_impl == "shard_map"
+        for f in dataclasses.fields(ref):
+            assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+        check_ported(ours)
     with pytest.raises(KeyError):
         tregistry.get_experiment("no_such_experiment")
 

@@ -11,7 +11,6 @@ epoch bit-equal to the run that did not stop (the same CPU ops on the same
 state).
 """
 
-import copy
 import json
 
 import jax
@@ -37,6 +36,7 @@ from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.train.config import ExperimentConfig
 from inverse_flow_tpu_torch.train.experiment import Experiment
 
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 from test_torch_sample import _jax_draws
 
 DIGITS = (1, 8, 8)
@@ -51,10 +51,11 @@ def _batches(loader):
 @pytest.mark.parametrize("ours,ref,shape,sizes", [
     (tdigits, jdigits, (1, 8, 8), (1437, 180, 180)),
     (tpatches, jpatches, (3, 16, 16), (1664, 208, 208))])
-def test_loaders_match_jax(ours, ref, shape, sizes):
+def test_loaders_match_jax(ours, ref, shape, sizes, jax_native):
     """The same arrays and the same batches as the JAX loaders: train
-    shuffled by the same seed (JAX's python path), val and test in order
-    with their last partial batch."""
+    shuffled by the same seed, on the native prefetcher as both loaders
+    take it by default and on the numpy path, val and test in order with
+    their last partial batch."""
     for a, b in zip(ours.load_arrays(), ref.load_arrays()):
         np.testing.assert_array_equal(a, b)
     mine, theirs = ours.load_data(batch_size=100, seed=3), \
@@ -63,10 +64,13 @@ def test_loaders_match_jax(ours, ref, shape, sizes):
     assert mine[0].data_shape == shape and ours.SHAPE == shape
     assert mine[0].shuffle and mine[0].drop_last
     np.testing.assert_array_equal(mine[0].data, theirs[0].data)
-    twin = jloader.ArrayLoader(theirs[0].data, 100, shuffle=True, seed=3,
-                               native_prefetch=False)
-    for loader, other in ((mine[0], twin),) + tuple(zip(mine[1:],
-                                                        theirs[1:])):
+    assert mine[0]._prefetcher is not None
+    numpy_path = (ArrayLoader(mine[0].data, 100, shuffle=True, seed=3,
+                              native_prefetch=False),
+                  jloader.ArrayLoader(theirs[0].data, 100, shuffle=True,
+                                      seed=3, native_prefetch=False))
+    for loader, other in ((mine[0], theirs[0]), numpy_path) + tuple(
+            zip(mine[1:], theirs[1:])):
         a, b = _batches(loader), _batches(other)
         assert len(a) == len(b) == len(loader)
         for x, y in zip(a, b):
@@ -170,9 +174,10 @@ def test_sample_through_slr_matches_jax(reduced):
 
 def test_resume_continues_the_run(tmp_path):
     """Save after epoch 2, load into a fresh Experiment with the generator
-    and the train loader's shuffle state copied over: epoch 3 is
-    bit-equal to that of the run that did not stop, and data init does
-    not run again."""
+    state copied over and the train loader advanced by the 2 epochs it
+    served (its shuffle runs on the native prefetcher's thread, whose
+    state cannot be copied): epoch 3 is bit-equal to that of the run that
+    did not stop, and data init does not run again."""
     spec = tregistry.get_experiment("real_digits_glow")
     train, test = tdigits.load_arrays()
     data = (train[:200], train[1437:1487], test[:50])
@@ -198,7 +203,9 @@ def test_resume_continues_the_run(tmp_path):
     resumed = make(3, "first")
     resumed.load()
     resumed.generator.set_state(first.generator.get_state())
-    resumed.train_loader._rng = copy.deepcopy(first.train_loader._rng)
+    for _ in range(2):
+        for _ in resumed.train_loader:
+            pass
     resumed.flow.data_init = None                 # must not run again
     assert resumed.step == first.step and resumed.summary["Epoch"] == 2
     resumed.run()
