@@ -49,15 +49,19 @@ from seed 0, batch 100 (104 for the patches):
   x K=48 ``InvFlowNoPad``, width 256, RQ spline, batch 250) and
   ``if_imagenet_multi_gpu`` (FastFlow, batch 100), in spawned processes
   that each join a process group, and the native C++ library,
+* the flagship Glow-MNIST with ``activation="BSpline"`` (L=2 x K=16,
+  width 512, a 5-bin B-spline activation in every step): a train step
+  and ``Experiment.sample``, the B-spline inverse on its kernel,
 
 in phases:
 
   1. device: the card's name and power limit;
-  2. build: the chain kernels and the Newton-inverse kernels (SLR and
-     SmoothTanh) from ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for
-     each source, all started together), each kernel's registers, shared
-     memory and spills, the MUFU instructions in the Newton kernels'
-     loops (SASS), which must be the counts rows H and H2 are bound by,
+  2. build: the chain kernels, the Newton-inverse kernels (SLR and
+     SmoothTanh, its first design too) and the B-spline-inverse kernel
+     from ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source,
+     all started together), each kernel's registers, shared memory and
+     spills, the MUFU instructions in the Newton kernels' loops (SASS),
+     which must be the counts rows H and H2 are bound by,
      the cluster kernel's resident clusters at every main-path shape,
      and the wide cluster kernel's plan (row groups, resident or
      streamed slices, resident clusters) at the wide shapes
@@ -153,10 +157,14 @@ in phases:
      plain chain; ms/step, peak memory, a profiled step; ``Flow.sample``);
      ``InvFlow(12, (3, 3), groups=2)`` forward and backward through the
      kernel against the plain chain, timed; the SmoothTanh-inverse kernel
-     against its plain loop at imagenet32's shapes, B=100 and 1, beta 0.1
-     and 0.01, timed beside it and the bound, and ``SmoothTanh.inverse``
-     counted; ``BSplineActivation`` and ``BSplineCoupling`` (width 512)
-     forward and inverse, ms per call, launch calls and round trips;
+     and its first design (forced) against the plain loop at imagenet32's
+     shapes, B=100 and 1, beta 0.1 and 0.01, the steps each exit needs,
+     timed beside the plain loop and the bound, and ``SmoothTanh.inverse``
+     counted; the B-spline-inverse kernel against its plain version in
+     its three layouts (shared, channel-major, last dim) at the same
+     shapes, timed beside it and the bound; ``BSplineActivation`` and
+     ``BSplineCoupling`` (width 512) forward and inverse, ms per call
+     with the kernel and the plain inverse, launch calls and round trips;
  15. CIFAR-10 and bf16 (:func:`phase_cifar_bf16`): ``if_glow_cifar``'s
      N=1 TL launch at B=140 (two waves of clusters, a ragged last
      cluster), forward and backward, against its plain version, timed;
@@ -185,7 +193,14 @@ in phases:
      one-process gradients; replicas equal after every step; ms/step, the
      all-reduce's ms; FastFlow's 2 steps); the native library built from
      ``native/src``, its float64 oracle against the kernel's solve, its
-     prefetcher against the numpy loader (:func:`check_native`).
+     prefetcher against the numpy loader (:func:`check_native`);
+ 17. the B-spline Glow-MNIST (:func:`phase_bspline_glow`): data init and
+     one train step (128 chain launches, no B-spline launch), then
+     ``Experiment.sample`` of 100: 32 B-spline-kernel launches and no
+     chain launch, finite samples; ``Flow.sample`` with the kernel and
+     with the plain inverse on the same draws, timed, their launch calls;
+     each block's round trip; the kernel against its plain version at the
+     path's two shapes, timed beside it and the bound.
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -2803,71 +2818,97 @@ def tanh_bound(n, steps):
 
 
 def check_smooth_tanh(gen, dev, card, torch):
-    """The SmoothTanh-inverse kernel (K2) against its plain loop at
-    imagenet32's three shapes, B=100 and B=1, y uniform in [-40, 40], at
-    alpha 1 and beta 0.1 and 0.01: every element within
-    ``smooth_tanh_inverse_limit``; the steps the kernel's exit test needs (mean,
-    warp maximum, elements whose iterate never settles); at beta 0.1 its
-    time beside the plain loop's and the bound on the steps these inputs
-    need and on 100 (:func:`tanh_bound`). No PyTorch call computes the
-    function. Returns the summary entry's numbers (means over the three
-    shapes at B=100, beta 0.1)."""
+    """The SmoothTanh-inverse kernel (K2, ``lane_exit``) and its first
+    design (``step_exit``, forced) against the plain loop at imagenet32's
+    three shapes, B=100 and B=1, y uniform in [-40, 40], at alpha 1 and
+    beta 0.1 and 0.01: every element of both within
+    ``smooth_tanh_inverse_limit``; the steps each exit rule needs on the
+    plain loop (:func:`~inverse_flow_tpu_torch.ops.activations.
+    smooth_tanh_inverse_steps`: the kernel's, mean, maximum and warp
+    maximum; the first design's step test, mean, warp maximum and the
+    elements whose iterate never settles); the times of both and of the
+    plain loop beside the bound on the steps these inputs need by the
+    kernel's rule and on 100 (:func:`tanh_bound`), and the launches a
+    call. No PyTorch call computes the function. Returns the summary
+    entry's numbers (means over the three shapes at B=100, beta 0.1)."""
     from inverse_flow_tpu_torch.ops import activations as act
 
     rows, max_err = [], 0.0
     shapes = [(b,) + s[1:] for b in (BATCH, 1) for s in SLR_SHAPES[:3]]
+
+    def warp_max(steps):
+        pad = (-steps.numel()) % 32
+        warps = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32)
+        return warps.max(1).values.float().mean().item()
+
     for beta in TANH_BETAS:
         for shape in shapes:
             y = slr_inputs(shape, gen, dev, torch)
             with torch.inference_mode():
-                x = act.smooth_tanh_inverse(y, 1.0, beta)
                 hist = act.smooth_tanh_inverse_history(y, 1.0, beta)
-                off = (x - hist[-1]).abs()
-                inside = bool((off <= act.smooth_tanh_inverse_limit(
-                    y, hist, 1.0, beta)).all())
-                err = off.max().item()
-                res = (act.smooth_tanh(x, 1.0, beta) - y).abs().max().item()
-                steps = act.smooth_tanh_inverse_steps(
-                    y.reshape(-1), 1.0, beta, tol=act.SLR_EXIT_TOL)
-                pad = (-steps.numel()) % 32
-                warps = torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32)
-                mean = steps.float().mean().item()
-                warp_max = warps.max(1).values.float().mean().item()
-                never = int((steps == act.NEWTON_ITERS).sum())
-                t = None
-                if beta == TANH_BETAS[0]:
-                    t = dict(ab_ms({"kernel": lambda: act.smooth_tanh_inverse(
-                        y, 1.0, beta)}, reps=50, rounds=4, torch=torch,
-                        ahead=True), **ab_ms(
-                        {"plain": lambda: act.smooth_tanh_inverse_reference(
-                            y, 1.0, beta)}, reps=3, rounds=2, torch=torch))
-            bound, bound_by = tanh_bound(y.numel(), int(steps.sum()))
+                limit = act.smooth_tanh_inverse_limit(y, hist, 1.0, beta)
+                errs, inside, res, launches, stray = {}, {}, {}, {}, 0
+                for v in act.TANH_VARIANTS:
+                    act.reset_smooth_tanh_launches()
+                    x = act.smooth_tanh_inverse(y, 1.0, beta, variant=v)
+                    torch.cuda.synchronize()
+                    by = act.smooth_tanh_inverse.launches_by_variant
+                    launches[v] = by[v]
+                    stray += sum(by.values()) - by[v]
+                    off = (x - hist[-1]).abs()
+                    errs[v] = off.max().item()
+                    inside[v] = bool((off <= limit).all())
+                    res[v] = (act.smooth_tanh(x, 1.0, beta) - y).abs().max(
+                        ).item()
+                steps = {rule: act.smooth_tanh_inverse_steps(
+                    y.reshape(-1), 1.0, beta, tol=act.SLR_EXIT_TOL,
+                    rule=rule) for rule in act.TANH_EXIT_RULES}
+                lane, first = steps["residual"], steps["step"]
+                never = int((first == act.NEWTON_ITERS).sum())
+                t = dict(ab_ms({v: lambda v=v: act.smooth_tanh_inverse(
+                    y, 1.0, beta, variant=v) for v in act.TANH_VARIANTS},
+                    reps=50, rounds=4, torch=torch, ahead=True), **ab_ms(
+                    {"plain": lambda: act.smooth_tanh_inverse_reference(
+                        y, 1.0, beta)}, reps=3, rounds=2, torch=torch))
+            bound, bound_by = tanh_bound(y.numel(), int(lane.sum()))
             bound_100, _ = tanh_bound(y.numel(), 100 * y.numel())
-            times = "" if t is None else (
-                f"kernel {1e3 * t['kernel']:.2f} us, plain loop "
-                f"{1e3 * t['plain']:.2f} us per call; bound "
-                f"{1e3 * bound:.3f} us on those steps ({bound_by}; the "
-                f"kernel at {bound / t['kernel']:.2%} of it), "
-                f"{1e3 * bound_100:.3f} us on 100 steps; ")
-            print(f"smooth_tanh: {shape} beta {beta}: {times}steps needed "
-                  f"mean {mean:.3f}, warp maximum mean {warp_max:.3f}, "
-                  f"{never} elements never settle ({never / y.numel():.3%})"
-                  f"; max abs err vs plain {err:.3e}, all within the limit "
-                  f"{inside}; |f(x) - y| {res:.3e} {card}", flush=True)
-            if not inside:
-                fail(f"the SmoothTanh-inverse kernel lands outside the "
-                     f"plain loop's limit at {shape} beta {beta}")
-            max_err = max(max_err, err)
-            if t is not None and shape[0] == BATCH:
-                rows.append((t["kernel"], t["plain"], bound, bound_100, mean,
-                             warp_max))
+            kernel, design = t["lane_exit"], t["step_exit"]
+            print(f"smooth_tanh: {shape} beta {beta}: kernel "
+                  f"{1e3 * kernel:.2f} us, first design (step_exit) "
+                  f"{1e3 * design:.2f} us, plain loop {1e3 * t['plain']:.2f} "
+                  f"us per call, {launches} launches a call; bound "
+                  f"{1e3 * bound:.3f} us on the steps these inputs need "
+                  f"({bound_by}; the kernel at {bound / kernel:.2%} of it, "
+                  f"the first design at {bound / design:.2%}), "
+                  f"{1e3 * bound_100:.3f} us on 100 steps; steps by the "
+                  f"kernel's exit mean {lane.float().mean().item():.3f}, "
+                  f"maximum {int(lane.max())}, warp maximum mean "
+                  f"{warp_max(lane):.3f}; by the step test alone mean "
+                  f"{first.float().mean().item():.3f}, warp maximum mean "
+                  f"{warp_max(first):.3f}, {never} elements never settle "
+                  f"({never / y.numel():.3%}); max abs err vs plain "
+                  f"{errs['lane_exit']:.3e} (first design "
+                  f"{errs['step_exit']:.3e}), all within the limit "
+                  f"{inside['lane_exit']} ({inside['step_exit']}); |f(x) - "
+                  f"y| {res['lane_exit']:.3e} {card}", flush=True)
+            if not all(inside.values()):
+                fail(f"the SmoothTanh-inverse kernels land outside the plain "
+                     f"loop's limit at {shape} beta {beta}: {inside}")
+            if launches != dict.fromkeys(act.TANH_VARIANTS, 1) or stray:
+                fail(f"smooth_tanh_inverse made {launches} launches a call "
+                     f"of each variant ({stray} of another)")
+            max_err = max(max_err, errs["lane_exit"])
+            if beta == TANH_BETAS[0] and shape[0] == BATCH:
+                rows.append((kernel, design, t["plain"], bound, bound_100,
+                             lane.float().mean().item(), int(lane.max()),
+                             warp_max(lane)))
                 row_bound_by = bound_by
-    ms, plain_ms, bound_ms, bound_100, mean, warp_max = (
-        statistics.fmean(c) for c in zip(*rows))
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=row_bound_by,
+    (ms, design_ms, plain_ms, bound_ms, bound_100, mean, most,
+     warp) = (statistics.fmean(c) for c in zip(*rows))
+    return dict(max_abs_err=max_err, ms=ms, step_exit_ms=design_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=row_bound_by,
                 bound_100_steps_ms=bound_100, steps_mean=mean,
-                steps_warp_max=warp_max, library_ms=None)
+                steps_max=most, steps_warp_max=warp, library_ms=None)
 
 
 def smooth_tanh_path(gen, dev, torch):
@@ -2893,8 +2934,11 @@ def smooth_tanh_path(gen, dev, torch):
           f"{BATCH}: {launches} kernel launches; round trip |inverse("
           f"forward(x)) - x| / |x| {rel:.3e} (tol {SAMPLE_RTOL:.0e})",
           flush=True)
-    if launches != len(xs) or not rel <= SAMPLE_RTOL:
-        fail(f"SmoothTanh.inverse: {launches} launches, round trip {rel}")
+    by = act.smooth_tanh_inverse.launches_by_variant
+    if launches != len(xs) or by["lane_exit"] != launches \
+            or not rel <= SAMPLE_RTOL:
+        fail(f"SmoothTanh.inverse: {launches} launches ({by}), round trip "
+             f"{rel}")
     return launches
 
 
@@ -2910,13 +2954,116 @@ def launch_calls(fn, torch):
                if e.key.startswith("cudaLaunch"))
 
 
+# the B-spline inverse's least operations an element, for the plain
+# version's algorithm, with the bin's cubic in power form by Horner's rule
+# (3 FMAs for its value, 2 for its slope): a bisection step is the midpoint
+# and the value; a Newton step the value, the slope and t -= (value - y) /
+# slope; the finish the midpoint, (i + t) / k and the log-det's slope x k
+BSPLINE_BISECT_FLOPS = 2 + 6
+BSPLINE_NEWTON_FLOPS = 6 + 4 + 3
+BSPLINE_FINISH_FLOPS = 2 + 2 + 5
+BSPLINE_ELEMENT_FLOPS = (20 * BSPLINE_BISECT_FLOPS + 5 * BSPLINE_NEWTON_FLOPS
+                         + BSPLINE_FINISH_FLOPS)
+
+
+def bspline_flops(n, k, own_coeffs):
+    """The least floating-point operations of one B-spline inverse on ``n``
+    elements at ``k`` bins, for the plain version's algorithm (the bin, 20
+    bisections, 5 Newton steps): each add, subtract, multiply and division
+    one, an FMA two; exp, log, max and comparisons not counted. Once per
+    coefficient set (each element's own, or one set shared by every
+    element): the softmax, floor and cumsum 6 (k + 3) + 2, the knots 10 and
+    the normalized knot values 6 (k + 1), as ``csrc/bspline_inverse.cu``
+    does them; the power form's two scales 2, and its 13 for each bin
+    taken, the element's own (own) or all k (shared). Then
+    ``BSPLINE_ELEMENT_FLOPS`` (234) an element."""
+    sets, bins = (n, 1) if own_coeffs else (1, k)
+    per_set = 6 * (k + 3) + 2 + 10 + 6 * (k + 1) + 2 + 13 * bins
+    return sets * per_set + n * BSPLINE_ELEMENT_FLOPS
+
+
+def bspline_bound(n, k, own_coeffs):
+    """(bound_ms, bound_by) of one B-spline inverse on ``n`` elements at
+    ``k`` bins: bytes (y read, x and the log-det written, 12 an element,
+    and the (k + 3) coefficients, each element's own or one shared set) at
+    the HBM rate, or operations: :func:`bspline_flops` at the float32
+    rate, or the k + 3 exps of each coefficient set and one log an element
+    at the SFU rate, whichever is larger."""
+    sets = n if own_coeffs else 1
+    bytes_ms = (12 * n + 4 * (k + 3) * sets) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max(bspline_flops(n, k, own_coeffs) / PEAK_FP32_FLOPS,
+                 ((k + 3) * sets + n) / PEAK_MUFU_PER_S) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def check_bspline_kernel(label, y, coeffs, layout, card, torch):
+    """The B-spline-inverse kernel against its plain version on ``y`` and
+    ``coeffs`` in ``layout``: x within ``1e-5 * max(1, max|x|)``; the
+    log-det against the plain forward's log-det at the kernel's own x
+    within ``1e-5 * max(1, max|log-det|)`` (the log-det moves by its slope
+    times x's own rounding: that difference is printed beside); the
+    kernel's time beside the plain version's, the bound
+    (:func:`bspline_bound`) and the launches a call. No single PyTorch
+    call computes the function. Returns the row's numbers."""
+    from inverse_flow_tpu_torch.ops import bspline as ob
+
+    with torch.inference_mode():
+        ob.reset_bspline_launches()
+        x, ld = ob.bspline_inverse(y, coeffs, layout)
+        torch.cuda.synchronize()
+        launches = ob.bspline_inverse.launches
+        x_ref, ld_ref = ob.bspline_inverse_reference(y, coeffs, layout)
+        last = ob.last_dim_coeffs(y, coeffs, layout)
+        ld_fwd = ob.monotone_cubic_b_spline(x, last)[1]
+        err = (x - x_ref).abs().max().item()
+        tol = 1e-5 * max(1.0, x_ref.abs().max().item())
+        ld_diff = (ld - ld_ref).abs().max().item()
+        ld_err = (ld + ld_fwd).abs().max().item()
+        ld_tol = 1e-5 * max(1.0, ld_ref.abs().max().item())
+        t = dict(ab_ms({"kernel": lambda: ob.bspline_inverse(
+            y, coeffs, layout)}, reps=50, rounds=4, torch=torch, ahead=True),
+            **ab_ms({"plain": lambda: ob.bspline_inverse_reference(
+                y, coeffs, layout)}, reps=3, rounds=2, torch=torch))
+    k = last.shape[-1] - 3
+    bound, bound_by = bspline_bound(y.numel(), k, layout != "shared")
+    print(f"{label}: bspline_inverse {layout} {tuple(y.shape)} K={k}: "
+          f"kernel {1e3 * t['kernel']:.2f} us, plain "
+          f"{1e3 * t['plain']:.2f} us per call, {launches} launch a call; "
+          f"bound {1e3 * bound:.3f} us ({bound_by}; the kernel at "
+          f"{bound / t['kernel']:.2%} of it); max abs err x {err:.3e} (tol "
+          f"{tol:.1e}), log-det vs the plain forward's at the kernel's x "
+          f"{ld_err:.3e} (tol {ld_tol:.1e}), vs the plain inverse's "
+          f"{ld_diff:.3e} {card}", flush=True)
+    if not (err <= tol and ld_err <= ld_tol and launches == 1):
+        fail(f"the B-spline-inverse kernel disagrees with its plain version "
+             f"({layout}, {tuple(y.shape)}) or made {launches} launches")
+    return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def plain_bspline():
+    """A context in which every B-spline layer's inverse runs the plain
+    version (the layers call ``ops.bspline.bspline_inverse`` through its
+    module)."""
+    from inverse_flow_tpu_torch.ops import bspline as ob
+
+    return mock.patch.object(ob, "bspline_inverse",
+                             ob.bspline_inverse_reference)
+
+
 def phase_bspline(gen, dev, card, torch):
-    """``BSplineActivation`` (8 bins, tail bound 10, coefficients drawn
-    at std 0.5) and ``BSplineCoupling`` (width 512; its zero-initialized
-    last conv drawn at std 0.01, so that the spline is not the identity)
-    at imagenet32's three shapes, B=100 and B=1, inputs 3 x N(0, 1): the
-    forward and the inverse (plain torch: 20 bisections and 5 Newton
-    steps) on the card, ms per call, the inverse's kernel launch calls,
+    """The B-spline-inverse kernel against its plain version in its three
+    layouts (:func:`check_bspline_kernel`) at imagenet32's three shapes,
+    B=100 and B=1, y uniform in [0, 1], 8 bins: ``"shared"`` coefficients
+    drawn at std 0.5; ``"channels"``, the net output of a
+    ``BSplineCoupling`` (width 512; its zero-initialized last conv drawn
+    at std 0.01, so that the spline is not the identity) on 3 x N(0, 1)
+    inputs, for the coupling's second half; ``"last"`` drawn at std 0.5.
+    Then ``BSplineActivation`` (8 bins, tail bound 10, coefficients at std
+    0.5) and that ``BSplineCoupling`` at the same shapes, inputs 3 x N(0,
+    1): the forward and the inverse on the card, ms per call with the
+    kernel and with the plain inverse, launch calls an inverse both ways,
     and the round trip within ``BSPLINE_RTOL`` x max(1, max|x|)."""
     from inverse_flow_tpu_torch.layers import (BSplineActivation,
                                                BSplineCoupling)
@@ -2934,6 +3081,17 @@ def phase_bspline(gen, dev, card, torch):
                 cpl.w3.copy_(0.01 * torch.randn(cpl.w3.shape, generator=gen,
                                                 device=dev))
             x = 3 * torch.randn((b,) + chw, generator=gen, device=dev)
+            half = (b, chw[0] - chw[0] // 2) + chw[1:]
+            with torch.inference_mode():
+                net = cpl._net(cpl.own_params(), x[:, :chw[0] // 2])
+            for layout, y, coeffs in (
+                    ("shared", (b,) + chw, act.coeffs.detach()),
+                    ("channels", half, net),
+                    ("last", (b,) + chw, 0.5 * torch.randn(
+                        (b,) + chw + (11,), generator=gen, device=dev))):
+                check_bspline_kernel("bspline", torch.rand(
+                    y, generator=gen, device=dev), coeffs, layout, card,
+                    torch)
             for name, layer in (("BSplineActivation", act),
                                 ("BSplineCoupling", cpl)):
                 with torch.inference_mode():
@@ -2941,15 +3099,24 @@ def phase_bspline(gen, dev, card, torch):
                     back = layer.inverse(z)
                     err = (back - x).abs().max().item()
                     tol = BSPLINE_RTOL * max(1.0, x.abs().max().item())
+
+                    def plain_inverse():
+                        with plain_bspline():
+                            return layer.inverse(z)
+
                     t = ab_ms({"forward": lambda: layer(x),
-                               "inverse": lambda: layer.inverse(z)},
+                               "inverse": lambda: layer.inverse(z),
+                               "plain": plain_inverse},
                               reps=3, rounds=2, torch=torch)
                     calls = launch_calls(lambda: layer.inverse(z), torch)
+                    plain_calls = launch_calls(plain_inverse, torch)
                 print(f"bspline: {name} {(b,) + chw}: forward "
                       f"{t['forward']:.3f} ms, inverse {t['inverse']:.3f} ms "
-                      f"per call, {calls} kernel launch calls an inverse; "
-                      f"round trip max abs err {err:.3e} (tol {tol:.1e}); "
-                      f"ldj finite {bool(torch.isfinite(ldj).all())} {card}",
+                      f"per call (plain inverse {t['plain']:.3f}), {calls} "
+                      f"kernel launch calls an inverse (plain "
+                      f"{plain_calls}); round trip max abs err {err:.3e} "
+                      f"(tol {tol:.1e}); ldj finite "
+                      f"{bool(torch.isfinite(ldj).all())} {card}",
                       flush=True)
                 if not (err <= tol and torch.isfinite(ldj).all()):
                     fail(f"{name} does not round-trip at {(b,) + chw}")
@@ -3570,26 +3737,33 @@ def phase_cifar_bf16(dev, gen, card, torch, _build):
     return entries
 
 
+# the Newton kernels of csrc/slr_inverse.cu whose loops phase 2 reads,
+# by the names in their SASS, and the MUFU instructions a step of each
+NEWTON_KERNELS = {
+    ("newton_inverse_kernel", "SlrStep"): SLR_MUFU_PER_STEP,
+    ("newton_inverse_kernel", "TanhStep"): TANH_MUFU_PER_STEP,
+    ("newton_lane_exit_kernel", "TanhStep"): TANH_MUFU_PER_STEP}
+
+
 def newton_loop_mufu(lib):
-    """Per step of ``newton_inverse_kernel`` in the built library ``lib``
-    (``"SlrStep"``, ``"TanhStep"``), the MUFU instructions and the calls in
-    its Newton loop: the SASS (``cuobjdump -sass``) between the target of
-    the backward branch that closes the loop (the one after the warp
+    """Per step of each of ``NEWTON_KERNELS`` in the built library
+    ``lib``, keyed ``"kernel<Step>"``, the MUFU instructions and the calls
+    in its Newton loop: the SASS (``cuobjdump -sass``) between the target
+    of the backward branch that closes the loop (the one after the warp
     vote) and that branch."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    found, step, code = {}, None, []
+    found, key, code = {}, None, []
     for line in sass.splitlines() + ["Function : end"]:
         if "Function :" in line:
-            if step is not None:
-                found[step] = _loop_mufu(code)
+            if key is not None:
+                found[key] = _loop_mufu(code)
             name = line.split("Function :")[1]
-            step = next((s for s in ("SlrStep", "TanhStep")
-                         if "newton_inverse_kernel" in name and s in name),
-                        None)
+            key = next((f"{kernel}<{step}>" for kernel, step in NEWTON_KERNELS
+                        if kernel in name and step in name), None)
             code = []
-        elif step is not None and line.strip().startswith("/*"):
+        elif key is not None and line.strip().startswith("/*"):
             addr, _, rest = line.strip()[2:].partition("*/")
             code.append((int(addr, 16), rest.split(";")[0].strip()))
     return found
@@ -3992,6 +4166,147 @@ def phase_data_parallel(dev, gen, card, torch, _build):
     return [dict(rows[0], launches=fwd), dict(rows[1], launches=bwd)]
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the B-spline Glow-MNIST's sampling path
+# ---------------------------------------------------------------------------
+
+def phase_bspline_glow(dev, card, torch):
+    """Phase 17: the flagship Glow-MNIST with ``activation="BSpline"``
+    (``build_glow((1, 28, 28), step_kind="inv_conv_no_pad",
+    activation="BSpline")``: L=2 x K=16, coupling width 512, a
+    ``BSplineActivation`` of 5 bins and tail bound 20 in every step), seed
+    0, B=100, with the flagship's training config. Data init and one
+    ``Experiment.train_step`` (64 + 32 + 32 chain launches, all
+    ``cluster``, no B-spline launch: the forward is plain torch), then
+    ``Experiment.sample`` of 100 with both counts set to 0 just before and
+    read just after: 32 B-spline-kernel launches, one per
+    ``BSplineActivation``, and no chain launch (``InvFlowNoPad``'s inverse
+    is its masked conv); finite samples of (100, 1, 28, 28), written to
+    ``chiprun_out/samples_bspline/1.png``. Then ``Flow.sample`` on the
+    same draws with the kernel and with the plain inverse (within
+    ``SAMPLE_RTOL`` by norm before the floor), both timed in turns, and
+    their launch calls; each block's round trip within ``BSPLINE_RTOL``
+    by norm; and the kernel against its plain version at the path's two
+    shapes, on the model's own coefficients (:func:`check_bspline_kernel`).
+    Returns (the kernel's summary row, its launches in the sample)."""
+    from inverse_flow_tpu_torch.data import mnist
+    from inverse_flow_tpu_torch.layers import (BSplineActivation, Flow,
+                                               RepeatedBlock)
+    from inverse_flow_tpu_torch.models.glow import build_glow
+    from inverse_flow_tpu_torch.ops import bspline as ob
+    from inverse_flow_tpu_torch.ops import fused_chain
+    from inverse_flow_tpu_torch.train.config import ExperimentConfig
+    from inverse_flow_tpu_torch.train.experiment import Experiment
+
+    label, t0 = "bspline_glow", time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    flow = build_glow((1, 28, 28), step_kind="inv_conv_no_pad", num_blocks=2,
+                      block_size=16, coupling_width=512, actnorm=True,
+                      split_prior=True, activation="BSpline", n_bins=5,
+                      tail_bound=20.0, generator=gen, device=dev)
+    out = os.path.join(HERE, "chiprun_out")
+    cfg = ExperimentConfig(
+        name="2L-16K_IF_Glow_MNIST_BSpline", lr=1e-5, batch_size=BATCH,
+        warmup_epochs=1, gamma=0.96170, scheduler_name="ExponentialLR",
+        weight_clamp=0.01, modified_grad=True, add_recon_grad=True,
+        sym_recon_grad=True, recon_loss_weight=0.0, n_samples=BATCH,
+        log_timing=False, plot_recon=False,
+        sample_dir=os.path.join(out, "samples_bspline"),
+        metrics_path=os.path.join(out, "bspline_glow_metrics.jsonl"), seed=0)
+    with warnings.catch_warnings(record=True):   # phase 5 printed it
+        warnings.simplefilter("always")
+        train, val, test = mnist.load_data(batch_size=BATCH, seed=cfg.seed)
+    exp = Experiment(flow, train, val, test, cfg, device=dev)
+    first = train.data[:BATCH]
+
+    fused_chain.reset_launches()
+    ob.reset_bspline_launches()
+    exp.maybe_data_init(first)
+    loss = float(exp.train_step(torch.as_tensor(first, device=dev)))
+    torch.cuda.synchronize()
+    train_chain, train_bspline = (fused_chain.chain_phases.launches,
+                                  ob.bspline_inverse.launches)
+    cluster_only(f"{label} data init + train step", train_chain)
+    fused_chain.reset_launches()
+    ob.reset_bspline_launches()
+    samples = exp.sample(1)
+    torch.cuda.synchronize()
+    bspline = ob.bspline_inverse.launches
+    chain = fused_chain.chain_phases.launches
+    n_params = sum(p.numel() for p in flow.parameters())
+    print(f"{label}: {cfg.name} {n_params} params; data init + 1 train step "
+          f"of {BATCH}: loss {loss:.4f}, {train_chain} chain launches (32 x "
+          f"2 + 32 + 32), {train_bspline} B-spline launches; "
+          f"Experiment.sample of {BATCH}: {bspline} B-spline-kernel "
+          f"launches, {chain} chain launches; shape "
+          f"{tuple(samples.shape)}, values {samples.min().item():.0f}.."
+          f"{samples.max().item():.0f}, finite "
+          f"{bool(torch.isfinite(samples).all())}; grid "
+          f"chiprun_out/samples_bspline/1.png", flush=True)
+    if not (math.isfinite(loss) and train_chain == 128
+            and train_bspline == 0):
+        fail(f"{label}: train step loss {loss}, {train_chain} chain and "
+             f"{train_bspline} B-spline launches (expected 128 and 0)")
+    if bspline != 32 or chain != 0 or samples.shape != (BATCH, 1, 28, 28) \
+            or not torch.isfinite(samples).all():
+        fail(f"{label}: Experiment.sample made {bspline} B-spline and "
+             f"{chain} chain launches (expected 32 and 0) or its samples "
+             f"are not finite")
+
+    body = Flow(flow.base_distribution, flow.layers[1:])
+    noise = sample_noise(flow, BATCH, gen, dev, torch)
+
+    def plain_sample():
+        with plain_bspline():
+            return body.sample(BATCH, noise=noise)
+
+    y, y_plain = body.sample(BATCH, noise=noise), plain_sample()
+    rel = ((y - y_plain).norm() / y_plain.norm()).item()
+    t = ab_ms({"kernel": lambda: body.sample(BATCH, noise=noise),
+               "plain": plain_sample}, reps=1, rounds=4, torch=torch)
+    calls = launch_calls(lambda: body.sample(BATCH, noise=noise), torch)
+    plain_calls = launch_calls(plain_sample, torch)
+    print(f"{label}: Flow.sample of {BATCH} on the same draws, kernel vs "
+          f"plain inverse before the floor: |y - y_plain| / |y_plain| "
+          f"{rel:.3e} (tol {SAMPLE_RTOL:.0e}); {t['kernel']:.3f} ms per "
+          f"{BATCH} images (plain inverse {t['plain']:.3f}: "
+          f"{t['plain'] / t['kernel']:.1f}x), {calls} kernel launch calls a "
+          f"Flow.sample (plain {plain_calls}), CUDA events, medians of 4 "
+          f"turns "
+          f"{card}", flush=True)
+    if not rel <= SAMPLE_RTOL:
+        fail(f"{label}: samples through the kernel disagree with the plain "
+             f"inverse")
+
+    x = torch.as_tensor(first, device=dev)
+    h = x + torch.rand(x.shape, generator=gen, device=dev)
+    trips, rows = [], []
+    with torch.inference_mode():
+        for layer in flow.layers[1:]:
+            if isinstance(layer, RepeatedBlock):
+                back = layer.inverse(layer(h)[0])
+                trips.append(((back - h).norm() / h.norm()).item())
+                act = next(m for m in layer.steps
+                           if isinstance(m, BSplineActivation))
+                # the block's first step's coefficients, at its input shape
+                coeffs = act.own_params()["coeffs"].detach()
+                coeffs = coeffs[0] if coeffs.ndim == 2 else coeffs
+                rows.append(check_bspline_kernel(
+                    label, torch.rand(h.shape, generator=gen, device=dev),
+                    coeffs.contiguous(), "shared", card, torch))
+            h = layer(h)[0]
+    print(f"{label}: each block's round trip |inverse(forward(x)) - x| / |x| "
+          f"{', '.join(f'{r:.3e}' for r in trips)} (tol {BSPLINE_RTOL:.0e}); "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(trips) != 2 or not max(trips) <= BSPLINE_RTOL:
+        fail(f"{label}: a block does not round-trip: {trips}")
+    row = {k: statistics.fmean(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    row.update(bound_by=rows[0]["bound_by"], library_ms=None,
+               max_abs_err=max(r["max_abs_err"] for r in rows))
+    return row, bspline
+
+
 def print_build(dev, _build, fused_chain):
     """Phase 2's report: each kernel's registers, shared memory and spills
     as ``ptxas -v`` gave them; and, at every solve shape of the main paths
@@ -4007,17 +4322,23 @@ def print_build(dev, _build, fused_chain):
     for line in _build.build_log("slr_inverse").splitlines():
         if "Compiling entry" in line:
             name = ("slr_inverse fixed" if "fixed_kernel" in line else
-                    "smooth_tanh_inverse" if "TanhStep" in line else
-                    "slr_inverse early_exit")
+                    "smooth_tanh_inverse lane_exit" if "lane_exit" in line
+                    else "smooth_tanh_inverse step_exit" if "TanhStep" in line
+                    else "slr_inverse early_exit")
         elif "registers" in line or "spill" in line:
             print(f"build: {name} kernel: {line.strip()}", flush=True)
+    for line in _build.build_log("bspline_inverse").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"build: bspline_inverse kernel: {line.strip()}",
+                  flush=True)
     loops = newton_loop_mufu(_build.build("slr_inverse"))
-    want = {"SlrStep": SLR_MUFU_PER_STEP, "TanhStep": TANH_MUFU_PER_STEP}
-    for step, (mufu, calls) in loops.items():
-        print(f"build: newton_inverse_kernel<{step}>: {mufu} MUFU "
-              f"instructions and {calls} calls in its Newton loop's SASS "
-              f"(the bound takes {want[step]})", flush=True)
-    if loops != {step: (n, 0) for step, n in want.items()}:
+    want = {f"{kernel}<{step}>": n
+            for (kernel, step), n in NEWTON_KERNELS.items()}
+    for key, (mufu, calls) in loops.items():
+        print(f"build: {key}: {mufu} MUFU instructions and {calls} calls in "
+              f"its Newton loop's SASS (the bound takes {want[key]})",
+              flush=True)
+    if loops != {key: (n, 0) for key, n in want.items()}:
         fail(f"the Newton loops' SASS holds {loops} MUFU instructions and "
              f"calls, not the {want} MUFU and no calls that the bounds of "
              f"rows H and H2 take")
@@ -4102,9 +4423,11 @@ def main():
     # ---- 2. build: one nvcc for each source, all started together -------
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        libs = list(pool.map(_build.build, ("chain_solve", "slr_inverse")))
+        libs = list(pool.map(_build.build, ("chain_solve", "slr_inverse",
+                                            "bspline_inverse")))
     _build.chain_solve_lib(dev.index)
     _build.slr_inverse_lib()
+    _build.bspline_inverse_lib()
     print(f"build: {', '.join(os.path.relpath(p, HERE) for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_build(dev, _build, fused_chain)
@@ -4250,7 +4573,11 @@ def main():
     dp_rows = phase_data_parallel(dev, gen, card, torch, _build)
     phase_done(16)
 
-    print(f"smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 17. the B-spline Glow-MNIST's sampling path -------------------
+    bspline_row, bspline_launches = phase_bspline_glow(dev, card, torch)
+    phase_done(17)
+
+    print(f"smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -4303,10 +4630,19 @@ def main():
         entry("chain_phases:fastflow", **fastflow_rows[0]),
         entry("chain_phases:fastflow_backward", **fastflow_rows[1]),
         entry("chain_phases:grouped_invflow", **grouped_invflow_row),
+        # (ms: newton_lane_exit_kernel, step_exit_ms: the first design
+        # forced)
         dict(name="smooth_tanh_inverse", route="cuda",
              source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
              replaces="inverse_flow_tpu/layers/activations.py:38",
-             **tanh_row)] + [
+             **tanh_row),
+        # phase 17: the kernel at the B-spline Glow-MNIST's two shapes (means),
+        # launches: its Experiment.sample of 100 (the counts set to 0 just
+        # before)
+        dict(name="bspline_inverse", route="cuda",
+             source="inverse_flow_tpu_torch/csrc/bspline_inverse.cu",
+             replaces="inverse_flow_tpu/layers/splines.py:227",
+             launches=bspline_launches, **bspline_row)] + [
         # phase 15: if_glow_cifar's N=1 TL launch at B=140, launches: its 3
         # train steps; ff_glow_cifar's grouped launch at CIFAR's shapes,
         # launches: one Flow.sample of 100; the four-order launch at B=1024

@@ -15,11 +15,12 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..ops import bspline
 from ..ops.activations import (slr, slr_inverse, slr_prime, smooth_tanh,
                                smooth_tanh_inverse, smooth_tanh_prime)
+from ..ops.bspline import clip01, monotone_cubic_b_spline
 from .base import FlowLayer, sum_except_batch
-from .splines import (clip01, monotone_cubic_b_spline,
-                      unconstrained_rational_quadratic_spline)
+from .splines import unconstrained_rational_quadratic_spline
 
 
 class FlowActivationLayer(FlowLayer):
@@ -177,8 +178,10 @@ class SplineActivation(FlowLayer):
 class BSplineActivation(FlowLayer):
     """Elementwise monotone cubic B-spline (param ``coeffs``, n_bins + 3):
     ``[-tail_bound, tail_bound]`` mapped affinely onto [0, 1], through the
-    spline and back; the identity with ldj 0 outside. The inverse is the
-    spline's bisection and Newton polish in plain torch."""
+    spline and back; the identity with ldj 0 outside. The inverse (the
+    spline's bisection and Newton polish) is one kernel launch on the card
+    (:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`, the
+    coefficients shared by every element)."""
 
     def __init__(self, n_bins: int = 8, tail_bound: float = 10.0,
                  generator=None, device=None):
@@ -191,7 +194,10 @@ class BSplineActivation(FlowLayer):
         b = self.tail_bound
         inside = (x > -b) & (x < b)
         u = clip01((x + b) / (2 * b))
-        out, ld = monotone_cubic_b_spline(u, p["coeffs"], inverse=inverse)
+        if inverse:
+            out, ld = bspline.bspline_inverse(u, p["coeffs"], "shared")
+        else:
+            out, ld = monotone_cubic_b_spline(u, p["coeffs"])
         y = torch.where(inside, out * 2 * b - b, x)
         return y, sum_except_batch(torch.where(inside, ld, 0.0))
 

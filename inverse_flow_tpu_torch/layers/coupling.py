@@ -14,7 +14,9 @@ and the ReZero scale, and log_s, t, exp and the ldj stay float32.
 
 Also ``BSplineCoupling`` (``coupling.py:131-205``): the second half goes
 through a monotone cubic B-spline whose coefficients the first half's net
-gives per element.
+gives per element; its inverse is one kernel launch on the card
+(:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`), which reads
+the coefficients channel-major, as the net gives them.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import bspline
+from ..ops.bspline import clip01, monotone_cubic_b_spline
 from .base import FlowLayer, sum_except_batch
-from .splines import clip01, monotone_cubic_b_spline
 
 
 def net_dtype(name):
@@ -128,24 +131,28 @@ class BSplineCoupling(FlowLayer):
         self.b3 = nn.Parameter(torch.zeros((n_out,), device=device))
         self.logs3 = nn.Parameter(torch.zeros((n_out,), device=device))
 
-    def _coeffs(self, p, x1):
-        """(B, C - C//2, H, W, n_bins + 3) spline coefficients."""
+    def _net(self, p, x1):
+        """(B, (C - C//2) * (n_bins + 3), H, W) spline coefficients,
+        channel-major: coefficient k of channel c at c * (n_bins + 3) + k."""
         h = F.relu(F.conv2d(x1, p["w1"], padding=1))
         h = F.relu(F.conv2d(h, p["w2"]))
         h = F.conv2d(h, p["w3"], p["b3"], padding=1)
-        h = h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
+        return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
             1, -1, 1, 1)
-        b, _, hh, ww = h.shape
-        return h.reshape(b, -1, self.n_bins + 3, hh, ww).permute(0, 1, 3, 4,
-                                                                 2)
 
     def _transform(self, p, x, inverse):
         x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
         tb = self.tail_bound
         inside = (x2 > -tb) & (x2 < tb)
         u = clip01((x2 + tb) / (2 * tb))
-        out, ld = monotone_cubic_b_spline(u, self._coeffs(p, x1),
-                                          inverse=inverse)
+        h = self._net(p, x1)
+        if inverse:
+            out, ld = bspline.bspline_inverse(u, h, "channels")
+        else:
+            b, _, hh, ww = h.shape
+            coeffs = h.reshape(b, -1, self.n_bins + 3, hh, ww).permute(
+                0, 1, 3, 4, 2)
+            out, ld = monotone_cubic_b_spline(u, coeffs)
         z2 = torch.where(inside, out * 2 * tb - tb, x2)
         return (torch.cat([x1, z2], dim=1),
                 sum_except_batch(torch.where(inside, ld, 0.0)))

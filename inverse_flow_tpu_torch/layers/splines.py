@@ -4,9 +4,11 @@ monotone cubic B-spline with its conditional transformer.
 Port of ``inverse_flow_tpu/layers/splines.py``, both directions. The bin
 parameters are computed at their own shape and broadcast to the inputs
 only where a bin is selected (``torch.gather``; JAX contracts a one-hot,
-a TPU workaround that gives the same values). The B-spline's inverse is
-JAX's fixed count of 20 bisection steps and 5 Newton steps, in plain
-torch.
+a TPU workaround that gives the same values). The monotone cubic
+B-spline itself lives in ``ops/bspline.py`` (re-exported here); the
+transformer's inverse is one launch of its kernel on the card
+(:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`, the
+coefficients in the last dim).
 """
 
 from __future__ import annotations
@@ -15,6 +17,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import bspline
+from ..ops.bspline import clip01, monotone_cubic_b_spline
+
+__all__ = ["ConditionalBSplineTransformer", "clip01",
+           "monotone_cubic_b_spline", "rational_quadratic_spline",
+           "unconstrained_rational_quadratic_spline"]
 
 DEFAULT_MIN_BIN_WIDTH = 1e-6
 DEFAULT_MIN_BIN_HEIGHT = 1e-6
@@ -126,71 +135,6 @@ def rational_quadratic_spline(
     return outputs, (-logabsdet if inverse else logabsdet)
 
 
-def clip01(x):
-    """``x`` clipped to [0, 1] as ``jnp.clip``: an input at an end gets
-    half the gradient (``torch.clamp`` would pass all of it)."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
-
-
-def monotone_cubic_b_spline(x, unnormalized_coeffs, inverse=False,
-                            min_step=1e-4):
-    """A monotone cubic B-spline bijection of [0, 1], or its inverse.
-
-    ``unnormalized_coeffs`` (..., K+3), broadcastable against
-    ``x[..., None]``, are the raw control-point increments of K bins:
-    softmax, floored at ``min_step``, and summed into increasing control
-    points c_0 < ... < c_{K+2}. Returns (outputs, logabsdet) elementwise;
-    with ``inverse`` the logdet of the inverse map."""
-    kp3 = unnormalized_coeffs.shape[-1]
-    k = kp3 - 3
-    step = torch.softmax(unnormalized_coeffs, dim=-1)
-    step = min_step + (1.0 - kp3 * min_step) * step
-    c = torch.cumsum(step, dim=-1)
-    # knot values v_j = (c_j + 4 c_{j+1} + c_{j+2}) / 6, j = 0..K
-    v = (c[..., 0:k + 1] + 4.0 * c[..., 1:k + 2] + c[..., 2:k + 3]) / 6.0
-    v0, scale = v[..., 0], v[..., -1] - v[..., 0]
-    lead = x.shape
-    v0 = v0.expand(lead) if v0.ndim else v0
-    scale = scale.expand(lead) if scale.ndim else scale
-    c_all = c.expand(lead + (kp3,))
-
-    def eval_bin(i, t):
-        """Spline value and d/dx at local parameter t of bin i, in
-        normalized output coordinates."""
-        idx = i[..., None] + torch.arange(4, device=i.device)
-        c0, c1, c2, c3 = torch.gather(c_all, -1, idx).unbind(-1)
-        omt = 1.0 - t
-        f = (c0 * omt ** 3 + c1 * (3 * t ** 3 - 6 * t ** 2 + 4)
-             + c2 * (-3 * t ** 3 + 3 * t ** 2 + 3 * t + 1) + c3 * t ** 3) / 6.0
-        # d f / d t, a quadratic B-spline in the increments (>= 0: monotone)
-        dfdt = ((c1 - c0) * omt ** 2 + (c2 - c1) * (-2 * t ** 2 + 2 * t + 1)
-                + (c3 - c2) * t ** 2) / 2.0
-        return (f - v0) / scale, k * dfdt / scale
-
-    if not inverse:
-        u = clip01(x) * k
-        i = torch.floor(u).clamp(0, k - 1)
-        y, dydx = eval_bin(i.long(), u - i)
-        return y, torch.log(dydx.clamp_min(1e-12))
-
-    # the bin by the normalized, increasing knot values; then bisection
-    # and a Newton polish on its local cubic
-    y = clip01(x)
-    vn = (v - v[..., :1]) / (v[..., -1:] - v[..., :1])
-    i = ((y[..., None] >= vn).sum(-1) - 1).clamp(0, k - 1)
-    lo, hi = torch.zeros_like(y), torch.ones_like(y)
-    for _ in range(20):
-        mid = 0.5 * (lo + hi)
-        below = eval_bin(i, mid)[0] < y
-        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
-    t = 0.5 * (lo + hi)
-    for _ in range(5):
-        f, dydx = eval_bin(i, t)
-        t = (t - (f - y) * k / dydx.clamp_min(1e-9)).clamp(0.0, 1.0)
-    _, dydx = eval_bin(i, t)
-    return (i + t) / k, -torch.log(dydx.clamp_min(1e-12))
-
-
 class ConditionalBSplineTransformer:
     """A monotone cubic B-spline bijection of ``[left, right)`` onto
     ``[bottom, top)``, elementwise, conditioned on a network output: the
@@ -217,9 +161,12 @@ class ConditionalBSplineTransformer:
                                                           self.right)
         out_lo, out_hi = (self.left, self.right) if inverse else (
             self.bottom, self.top)
-        out, ld = monotone_cubic_b_spline((y - lo) / (hi - lo),
-                                          self._coeffs(net_out),
-                                          inverse=inverse)
+        u = (y - lo) / (hi - lo)
+        if inverse:
+            out, ld = bspline.bspline_inverse(u, self._coeffs(net_out),
+                                              "last")
+        else:
+            out, ld = monotone_cubic_b_spline(u, self._coeffs(net_out))
         return (out * (out_hi - out_lo) + out_lo,
                 ld + math.log((out_hi - out_lo) / (hi - lo)))
 

@@ -109,9 +109,23 @@ def slr_inverse_lib() -> ctypes.CDLL:
     for fn in (lib.slr_inverse_f32, lib.slr_inverse_fixed_f32):
         fn.argtypes = ptrs + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.smooth_tanh_inverse_f32.argtypes = ptrs + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.smooth_tanh_inverse_f32.restype = ctypes.c_int
+    for fn in (lib.smooth_tanh_inverse_f32,
+               lib.smooth_tanh_inverse_step_exit_f32):
+        fn.argtypes = ptrs + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def bspline_inverse_lib() -> ctypes.CDLL:
+    """``csrc/bspline_inverse.cu`` (the monotone cubic B-spline's inverse),
+    built and loaded once per process."""
+    lib = ctypes.CDLL(build("bspline_inverse"))
+    fn = lib.bspline_inverse_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 

@@ -12,13 +12,17 @@ kernel of ``csrc/slr_inverse.cu``, all the steps in registers, and on a CPU
 tensor as :func:`slr_inverse_reference` /
 :func:`smooth_tanh_inverse_reference`, the same loop in plain torch.
 
-The kernel stops a warp once a step has moved every lane's x by at most
-``SLR_EXIT_TOL * max(1, |x|)``, where Newton has converged to within
+The SLR kernel stops a warp once a step has moved every lane's x by at
+most ``SLR_EXIT_TOL * max(1, |x|)``, where Newton has converged to within
 float32's rounding of the residual (the reference loop's own iterate cycles
 between floats a few ulp apart for some y, so a bitwise fixed point is not
-always reached). :func:`slr_inverse_steps` and
+always reached). The smooth tanh's kernel stops each lane on its own, at
+that step test or once the step's residual ``|f(x) - y|`` is at most
+``SLR_EXIT_TOL * max(1, |y|)``, and the warp when every lane has stopped:
+its iterate can cycle wider than the step test where f' is near beta, but
+not with a residual above float32's rounding. :func:`slr_inverse_steps` and
 :func:`smooth_tanh_inverse_steps` count, per element, the steps the
-reference loop needs to settle, bit for bit or within that tolerance.
+reference loop needs to settle, bit for bit or by those tests.
 """
 
 from __future__ import annotations
@@ -110,13 +114,32 @@ def slr_inverse_steps(y, alpha, iters=NEWTON_ITERS, tol=0.0):
     return _newton_steps(lambda x: _newton_step(x, y, alpha), y, iters, tol)
 
 
-def smooth_tanh_inverse_steps(y, alpha, beta, iters=NEWTON_ITERS, tol=0.0):
-    """:func:`slr_inverse_steps` for :func:`smooth_tanh_inverse_reference`."""
+# the exit rules of smooth_tanh_inverse_steps: "step", a step moved x by
+# at most tol * max(1, |x|) (the first design's test); "residual", that or
+# |f(x) - y| <= tol * max(1, |y|) at the step's x (the kernel's)
+TANH_EXIT_RULES = ("step", "residual")
+
+
+def smooth_tanh_inverse_steps(y, alpha, beta, iters=NEWTON_ITERS, tol=0.0,
+                              rule="step"):
+    """:func:`slr_inverse_steps` for :func:`smooth_tanh_inverse_reference`,
+    by the exit ``rule`` (``TANH_EXIT_RULES``). ``rule`` ``"residual"``
+    with ``tol`` ``SLR_EXIT_TOL`` is the kernel's exit: the loop's x after
+    that many steps (``smooth_tanh_inverse_history(...)[steps - 1]``) is
+    the x a lane keeps."""
+    if rule not in TANH_EXIT_RULES:
+        raise ValueError(f"unknown exit rule {rule!r}")
+    if rule == "residual" and not tol:
+        raise ValueError("the residual rule needs a tolerance")
+    residual = None
+    if rule == "residual":
+        def residual(x):
+            return smooth_tanh(x, alpha, beta) - y
     return _newton_steps(lambda x: _tanh_newton_step(x, y, alpha, beta), y,
-                         iters, tol)
+                         iters, tol, residual)
 
 
-def _newton_steps(step, y, iters, tol):
+def _newton_steps(step, y, iters, tol, residual=None):
     x = y
     steps = torch.full(y.shape, iters, dtype=torch.int32, device=y.device)
     done = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
@@ -126,6 +149,8 @@ def _newton_steps(step, y, iters, tol):
             fixed = (nxt - x).abs() <= tol * x.abs().clamp(min=1.0)
         else:
             fixed = nxt.view(torch.int32) == x.view(torch.int32)
+        if residual is not None:
+            fixed |= residual(x).abs() <= tol * y.abs().clamp(min=1.0)
         fixed &= ~done
         steps[fixed] = k
         done |= fixed
@@ -191,24 +216,37 @@ def reset_slr_launches():
     slr_inverse.launches_by_variant = dict.fromkeys(SLR_VARIANTS, 0)
 
 
-def smooth_tanh_inverse(y, alpha, beta, iters=NEWTON_ITERS):
-    """x with ``smooth_tanh(x, alpha, beta) = y``, by ``iters`` Newton
-    steps. CPU tensors take :func:`smooth_tanh_inverse_reference`; a
-    float32 CUDA tensor launches the kernel's smooth-tanh form, which
-    stops each warp as ``slr_inverse_kernel`` does, counted in
-    ``smooth_tanh_inverse.launches``."""
+# the smooth tanh's kernels: "lane_exit" stops each lane at the step or
+# residual test (every call), "step_exit" is the first design, the SLR
+# kernel's warp exit, kept as a forced variant for the timings
+TANH_VARIANTS = ("lane_exit", "step_exit")
+_TANH_LAUNCHERS = {"lane_exit": "smooth_tanh_inverse_f32",
+                   "step_exit": "smooth_tanh_inverse_step_exit_f32"}
+
+
+def smooth_tanh_inverse(y, alpha, beta, iters=NEWTON_ITERS, variant=None):
+    """x with ``smooth_tanh(x, alpha, beta) = y``, by at most ``iters``
+    Newton steps. CPU tensors take :func:`smooth_tanh_inverse_reference`;
+    a float32 CUDA tensor launches ``newton_lane_exit_kernel<TanhStep>``
+    (or ``variant``, forced by the timings), counted in
+    ``smooth_tanh_inverse.launches`` and ``.launches_by_variant``."""
+    if variant is not None and variant not in TANH_VARIANTS:
+        raise ValueError(f"smooth_tanh_inverse: unknown variant {variant!r}")
     if y.device.type == "cpu":
         return smooth_tanh_inverse_reference(y, alpha, beta, iters)
-    x = _newton_launch("smooth_tanh_inverse", "smooth_tanh_inverse_f32", y,
+    variant = variant or "lane_exit"
+    x = _newton_launch("smooth_tanh_inverse", _TANH_LAUNCHERS[variant], y,
                        float(alpha), float(beta), int(iters))
     if y.numel():
         smooth_tanh_inverse.launches += 1
+        smooth_tanh_inverse.launches_by_variant[variant] += 1
     return x
 
 
 def reset_smooth_tanh_launches():
-    """Sets :func:`smooth_tanh_inverse`'s launch count to 0."""
+    """Sets :func:`smooth_tanh_inverse`'s launch counts to 0."""
     smooth_tanh_inverse.launches = 0
+    smooth_tanh_inverse.launches_by_variant = dict.fromkeys(TANH_VARIANTS, 0)
 
 
 reset_slr_launches()
