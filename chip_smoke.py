@@ -57,8 +57,9 @@ in phases:
 
   1. device: the card's name and power limit;
   2. build: the chain kernels, the Newton-inverse kernels (SLR and
-     SmoothTanh, its first design too) and the B-spline-inverse kernel
-     from ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source,
+     SmoothTanh, its first design too) and the B-spline-inverse kernels
+     (its three layouts and its first design) from
+     ``inverse_flow_tpu_torch/csrc`` (one ``nvcc`` for each source,
      all started together), each kernel's registers, shared memory and
      spills, the MUFU instructions in the Newton kernels' loops (SASS),
      which must be the counts rows H and H2 are bound by,
@@ -162,9 +163,12 @@ in phases:
      timed beside the plain loop and the bound, and ``SmoothTanh.inverse``
      counted; the B-spline-inverse kernel against its plain version in
      its three layouts (shared, channel-major, last dim) at the same
-     shapes, timed beside it and the bound; ``BSplineActivation`` and
+     shapes, its Newton steps, timed beside its first design (forced),
+     the plain version and the bound; ``BSplineActivation`` and
      ``BSplineCoupling`` (width 512) forward and inverse, ms per call
-     with the kernel and the plain inverse, launch calls and round trips;
+     with the kernel and the plain inverse, launch calls (at most 2 a
+     ``BSplineActivation`` inverse) and round trips; the kernel on wide
+     draws (coefficients at std 3) against the float64 plain inverse;
  15. CIFAR-10 and bf16 (:func:`phase_cifar_bf16`): ``if_glow_cifar``'s
      N=1 TL launch at B=140 (two waves of clusters, a ragged last
      cluster), forward and backward, against its plain version, timed;
@@ -200,7 +204,8 @@ in phases:
      chain launch, finite samples; ``Flow.sample`` with the kernel and
      with the plain inverse on the same draws, timed, their launch calls;
      each block's round trip; the kernel against its plain version at the
-     path's two shapes, timed beside it and the bound.
+     path's two shapes, timed beside its first design, the plain version
+     and the bound.
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -307,14 +312,16 @@ def fail(msg):
 
 def time_ms(fn, reps, torch, ahead=False):
     """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events.
-    ``ahead``: the device first sleeps for about ``reps`` x 50 us, so that
-    the host queues the calls before the device reaches them and the
-    events time the device's work, not the host's launch rate (a chain
-    launch of 10-20 us takes about as long to enqueue)."""
+    ``ahead``: the device first sleeps for about ``reps`` x 50 us (times
+    ``ahead`` where it is a number), so that the host queues the calls
+    before the device reaches them and the events time the device's work,
+    not the host's launch rate (a chain launch of 10-20 us takes about as
+    long to enqueue)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if ahead:
-        torch.cuda._sleep(reps * 100_000)     # cycles, about 1.9 GHz
+        # cycles, about 1.9 GHz
+        torch.cuda._sleep(int(ahead) * reps * 100_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -3002,17 +3009,19 @@ def check_bspline_kernel(label, y, coeffs, layout, card, torch):
     ``coeffs`` in ``layout``: x within ``1e-5 * max(1, max|x|)``; the
     log-det against the plain forward's log-det at the kernel's own x
     within ``1e-5 * max(1, max|log-det|)`` (the log-det moves by its slope
-    times x's own rounding: that difference is printed beside); the
-    kernel's time beside the plain version's, the bound
-    (:func:`bspline_bound`) and the launches a call. No single PyTorch
-    call computes the function. Returns the row's numbers."""
+    times x's own rounding: that difference is printed beside); one launch
+    a call, of the new kernel only; its Newton steps (mean, maximum, from
+    the kernel's own count); the first design, forced, held to the same x
+    rule; the kernel's time beside the first design's, the plain
+    version's, the bound (:func:`bspline_bound`). No single PyTorch call
+    computes the function. Returns the row's numbers."""
     from inverse_flow_tpu_torch.ops import bspline as ob
 
     with torch.inference_mode():
         ob.reset_bspline_launches()
         x, ld = ob.bspline_inverse(y, coeffs, layout)
         torch.cuda.synchronize()
-        launches = ob.bspline_inverse.launches
+        by_variant = dict(ob.bspline_inverse.launches_by_variant)
         x_ref, ld_ref = ob.bspline_inverse_reference(y, coeffs, layout)
         last = ob.last_dim_coeffs(y, coeffs, layout)
         ld_fwd = ob.monotone_cubic_b_spline(x, last)[1]
@@ -3021,25 +3030,77 @@ def check_bspline_kernel(label, y, coeffs, layout, card, torch):
         ld_diff = (ld - ld_ref).abs().max().item()
         ld_err = (ld + ld_fwd).abs().max().item()
         ld_tol = 1e-5 * max(1.0, ld_ref.abs().max().item())
+        x_steps, _, steps = ob.bspline_inverse(y, coeffs, layout, steps=True)
+        first_err = (ob.bspline_inverse(y, coeffs, layout, variant="first")[0]
+                     - x_ref).abs().max().item()
+        # the sleep-ahead at 4x: a wrapper call takes 29-46 us of a host's
+        # time (scripts/bspline_probe.py host), near the 50 us a call of
+        # the sleep, and a slower host read 19 us for an 8 us launch
         t = dict(ab_ms({"kernel": lambda: ob.bspline_inverse(
-            y, coeffs, layout)}, reps=50, rounds=4, torch=torch, ahead=True),
+            y, coeffs, layout), "first": lambda: ob.bspline_inverse(
+            y, coeffs, layout, variant="first")}, reps=50, rounds=4,
+            torch=torch, ahead=4),
             **ab_ms({"plain": lambda: ob.bspline_inverse_reference(
                 y, coeffs, layout)}, reps=3, rounds=2, torch=torch))
     k = last.shape[-1] - 3
+    steps_mean, steps_max = steps.float().mean().item(), int(steps.max())
     bound, bound_by = bspline_bound(y.numel(), k, layout != "shared")
     print(f"{label}: bspline_inverse {layout} {tuple(y.shape)} K={k}: "
-          f"kernel {1e3 * t['kernel']:.2f} us, plain "
-          f"{1e3 * t['plain']:.2f} us per call, {launches} launch a call; "
-          f"bound {1e3 * bound:.3f} us ({bound_by}; the kernel at "
-          f"{bound / t['kernel']:.2%} of it); max abs err x {err:.3e} (tol "
-          f"{tol:.1e}), log-det vs the plain forward's at the kernel's x "
-          f"{ld_err:.3e} (tol {ld_tol:.1e}), vs the plain inverse's "
-          f"{ld_diff:.3e} {card}", flush=True)
-    if not (err <= tol and ld_err <= ld_tol and launches == 1):
+          f"kernel {1e3 * t['kernel']:.2f} us, first design "
+          f"{1e3 * t['first']:.2f} us, plain {1e3 * t['plain']:.2f} us per "
+          f"call, launches a call {by_variant}; Newton steps mean "
+          f"{steps_mean:.3f}, max {steps_max} (cap "
+          f"{ob.BSPLINE_MAX_STEPS}); bound {1e3 * bound:.3f} us ({bound_by}; "
+          f"the kernel at {bound / t['kernel']:.2%} of it, the first design "
+          f"at {bound / t['first']:.2%}); max abs err x {err:.3e} (first "
+          f"design {first_err:.3e}; tol {tol:.1e}), log-det vs the plain "
+          f"forward's at the kernel's x {ld_err:.3e} (tol {ld_tol:.1e}), vs "
+          f"the plain inverse's {ld_diff:.3e} {card}", flush=True)
+    if not (err <= tol and first_err <= tol and ld_err <= ld_tol
+            and by_variant == {"bracketed": 1, "first": 0}
+            and torch.equal(x_steps, x)
+            and steps_max <= ob.BSPLINE_MAX_STEPS):
         fail(f"the B-spline-inverse kernel disagrees with its plain version "
-             f"({layout}, {tuple(y.shape)}) or made {launches} launches")
-    return dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
-                bound_by=bound_by, max_abs_err=err)
+             f"({layout}, {tuple(y.shape)}) or made launches {by_variant}")
+    return dict(ms=t["kernel"], first_design_ms=t["first"],
+                plain_ms=t["plain"], bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err, steps_mean=steps_mean, steps_max=steps_max)
+
+
+def check_bspline_wide(y, coeffs, layout, card, torch):
+    """The kernel on wide draws (coefficients at std 3: some bins at
+    min_step, the root ill-conditioned): its x no farther from the float64
+    plain inverse than the float32 plain version's is, plus 1e-6; the plain
+    forward in float64 at its x returns y to within the float32 plain
+    inverse's residual there plus 2 ulp of 1 (the float32 forward's own
+    rounding reaches 1e-4 of y where a set's knots span 1e-3, and favours
+    the x found on that rounding); its Newton steps within the cap."""
+    from inverse_flow_tpu_torch.ops import bspline as ob
+
+    with torch.inference_mode():
+        x, _, steps = ob.bspline_inverse(y, coeffs, layout, steps=True)
+        last = ob.last_dim_coeffs(y, coeffs, layout)
+        x32, _ = ob.monotone_cubic_b_spline(y, last, inverse=True)
+        x64, _ = ob.monotone_cubic_b_spline(y.double(), last.double(),
+                                            inverse=True)
+        err = (x.double() - x64).abs().max().item()
+        err32 = (x32.double() - x64).abs().max().item()
+        res, res32 = (
+            (ob.monotone_cubic_b_spline(v.double(), last.double())[0]
+             - y.double()).abs().max().item() for v in (x, x32))
+    k = last.shape[-1] - 3
+    print(f"bspline: wide draws (std 3) {layout} {tuple(y.shape)} K={k}: "
+          f"max |x - x_f64| kernel {err:.3e}, plain float32 {err32:.3e} "
+          f"(rule: kernel <= plain + 1e-6); float64 residual |f(x) - y| "
+          f"kernel {res:.3e}, plain {res32:.3e} (rule: <= plain + 2.4e-7); "
+          f"Newton "
+          f"steps mean {steps.float().mean().item():.3f}, max "
+          f"{int(steps.max())} (cap {ob.BSPLINE_MAX_STEPS}) {card}",
+          flush=True)
+    if not (err <= err32 + 1e-6 and res <= res32 + 2 * 2.0 ** -23
+            and int(steps.max()) <= ob.BSPLINE_MAX_STEPS):
+        fail(f"the B-spline-inverse kernel misses the wide-draw rule "
+             f"({layout}, K={k})")
 
 
 def plain_bspline():
@@ -3063,8 +3124,11 @@ def phase_bspline(gen, dev, card, torch):
     Then ``BSplineActivation`` (8 bins, tail bound 10, coefficients at std
     0.5) and that ``BSplineCoupling`` at the same shapes, inputs 3 x N(0,
     1): the forward and the inverse on the card, ms per call with the
-    kernel and with the plain inverse, launch calls an inverse both ways,
-    and the round trip within ``BSPLINE_RTOL`` x max(1, max|x|)."""
+    kernel and with the plain inverse, launch calls an inverse both ways
+    (a ``BSplineActivation`` inverse at most 2: the maps and tails are in
+    the launch), and the round trip within ``BSPLINE_RTOL`` x max(1,
+    max|x|). Last, the wide draws (:func:`check_bspline_wide`) at
+    (100, 12, 16, 16), 5 and 8 bins, in every layout."""
     from inverse_flow_tpu_torch.layers import (BSplineActivation,
                                                BSplineCoupling)
 
@@ -3120,6 +3184,19 @@ def phase_bspline(gen, dev, card, torch):
                       flush=True)
                 if not (err <= tol and torch.isfinite(ldj).all()):
                     fail(f"{name} does not round-trip at {(b,) + chw}")
+                if name == "BSplineActivation" and calls > 2:
+                    fail(f"a BSplineActivation inverse made {calls} launch "
+                         f"calls (at most 2)")
+    shape = SLR_SHAPES[0]
+    for k in (5, 8):
+        for layout, c_shape in (
+                ("shared", (k + 3,)),
+                ("channels", (shape[0], shape[1] * (k + 3)) + shape[2:]),
+                ("last", shape + (k + 3,))):
+            check_bspline_wide(
+                torch.rand(shape, generator=gen, device=dev),
+                3 * torch.randn(c_shape, generator=gen, device=dev), layout,
+                card, torch)
 
 
 def convexp_carry_check(convexps, errs, torch):
@@ -4301,8 +4378,10 @@ def phase_bspline_glow(dev, card, torch):
     if len(trips) != 2 or not max(trips) <= BSPLINE_RTOL:
         fail(f"{label}: a block does not round-trip: {trips}")
     row = {k: statistics.fmean(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "first_design_ms", "plain_ms", "bound_ms",
+                     "steps_mean")}
     row.update(bound_by=rows[0]["bound_by"], library_ms=None,
+               steps_max=max(r["steps_max"] for r in rows),
                max_abs_err=max(r["max_abs_err"] for r in rows))
     return row, bspline
 
@@ -4328,8 +4407,12 @@ def print_build(dev, _build, fused_chain):
         elif "registers" in line or "spill" in line:
             print(f"build: {name} kernel: {line.strip()}", flush=True)
     for line in _build.build_log("bspline_inverse").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: bspline_inverse kernel: {line.strip()}",
+        if "Compiling entry" in line:
+            name = next(k for k in ("newton_shared", "newton_channels",
+                                    "newton_last", "inverse_first")
+                        if f"bspline_{k}_kernel" in line)
+        elif "registers" in line or "spill" in line:
+            print(f"build: bspline_{name} kernel: {line.strip()}",
                   flush=True)
     loops = newton_loop_mufu(_build.build("slr_inverse"))
     want = {f"{kernel}<{step}>": n
@@ -4636,9 +4719,9 @@ def main():
              source="inverse_flow_tpu_torch/csrc/slr_inverse.cu",
              replaces="inverse_flow_tpu/layers/activations.py:38",
              **tanh_row),
-        # phase 17: the kernel at the B-spline Glow-MNIST's two shapes (means),
-        # launches: its Experiment.sample of 100 (the counts set to 0 just
-        # before)
+        # phase 17: the kernel at the B-spline Glow-MNIST's two shapes (means;
+        # first_design_ms: bspline_inverse_first_kernel forced), launches:
+        # its Experiment.sample of 100 (the counts set to 0 just before)
         dict(name="bspline_inverse", route="cuda",
              source="inverse_flow_tpu_torch/csrc/bspline_inverse.cu",
              replaces="inverse_flow_tpu/layers/splines.py:227",

@@ -14,9 +14,10 @@ and the ReZero scale, and log_s, t, exp and the ldj stay float32.
 
 Also ``BSplineCoupling`` (``coupling.py:131-205``): the second half goes
 through a monotone cubic B-spline whose coefficients the first half's net
-gives per element; its inverse is one kernel launch on the card
-(:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`), which reads
-the coefficients channel-major, as the net gives them.
+gives per element; its inverse is the net, one kernel launch on the card
+(:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`, which reads
+the coefficients channel-major, as the net gives them, and the second half
+where it lies, and does the maps and the tails) and the ``cat``.
 """
 
 from __future__ import annotations
@@ -140,25 +141,24 @@ class BSplineCoupling(FlowLayer):
         return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
             1, -1, 1, 1)
 
-    def _transform(self, p, x, inverse):
+    def forward_with(self, p, x, generator=None):
         x1, x2 = x[:, :self.half_channels], x[:, self.half_channels:]
         tb = self.tail_bound
         inside = (x2 > -tb) & (x2 < tb)
         u = clip01((x2 + tb) / (2 * tb))
         h = self._net(p, x1)
-        if inverse:
-            out, ld = bspline.bspline_inverse(u, h, "channels")
-        else:
-            b, _, hh, ww = h.shape
-            coeffs = h.reshape(b, -1, self.n_bins + 3, hh, ww).permute(
-                0, 1, 3, 4, 2)
-            out, ld = monotone_cubic_b_spline(u, coeffs)
+        b, _, hh, ww = h.shape
+        coeffs = h.reshape(b, -1, self.n_bins + 3, hh, ww).permute(
+            0, 1, 3, 4, 2)
+        out, ld = monotone_cubic_b_spline(u, coeffs)
         z2 = torch.where(inside, out * 2 * tb - tb, x2)
         return (torch.cat([x1, z2], dim=1),
                 sum_except_batch(torch.where(inside, ld, 0.0)))
 
-    def forward_with(self, p, x, generator=None):
-        return self._transform(p, x, inverse=False)
-
     def inverse_with(self, p, z, generator=None):
-        return self._transform(p, z, inverse=True)[0]
+        z1, z2 = z[:, :self.half_channels], z[:, self.half_channels:]
+        tb = self.tail_bound
+        x2 = bspline.bspline_inverse(
+            z2, self._net(p, z1), "channels", interval=(-tb, tb),
+            out_interval=(-tb, tb), tails=True, logdet=False)[0]
+        return torch.cat([z1, x2], dim=1)

@@ -156,24 +156,19 @@ class ConditionalBSplineTransformer:
         return net_out.reshape(net_out.shape[:-1]
                                + (self.y_dim, self.params_per_dim))
 
-    def _apply(self, net_out, y, inverse):
-        lo, hi = (self.bottom, self.top) if inverse else (self.left,
-                                                          self.right)
-        out_lo, out_hi = (self.left, self.right) if inverse else (
-            self.bottom, self.top)
-        u = (y - lo) / (hi - lo)
-        if inverse:
-            out, ld = bspline.bspline_inverse(u, self._coeffs(net_out),
-                                              "last")
-        else:
-            out, ld = monotone_cubic_b_spline(u, self._coeffs(net_out))
+    def forward(self, net_out, y):
+        """(z, elementwise ldj)."""
+        lo, hi, out_lo, out_hi = self.left, self.right, self.bottom, self.top
+        out, ld = monotone_cubic_b_spline((y - lo) / (hi - lo),
+                                          self._coeffs(net_out))
         return (out * (out_hi - out_lo) + out_lo,
                 ld + math.log((out_hi - out_lo) / (hi - lo)))
 
-    def forward(self, net_out, y):
-        """(z, elementwise ldj)."""
-        return self._apply(net_out, y, inverse=False)
-
     def inverse(self, net_out, z):
-        """(y, elementwise ldj of the inverse)."""
-        return self._apply(net_out, z, inverse=True)
+        """(y, elementwise ldj of the inverse): the maps in the kernel's
+        launch on the card, then the constant log term."""
+        lo, hi, out_lo, out_hi = self.bottom, self.top, self.left, self.right
+        out, ld = bspline.bspline_inverse(z, self._coeffs(net_out), "last",
+                                          interval=(lo, hi),
+                                          out_interval=(out_lo, out_hi))
+        return out, ld + math.log((out_hi - out_lo) / (hi - lo))

@@ -119,10 +119,17 @@ def slr_inverse_lib() -> ctypes.CDLL:
 
 @functools.cache
 def bspline_inverse_lib() -> ctypes.CDLL:
-    """``csrc/bspline_inverse.cu`` (the monotone cubic B-spline's inverse),
-    built and loaded once per process."""
+    """``csrc/bspline_inverse.cu`` (the monotone cubic B-spline's inverse:
+    the bracketed Newton kernels and the first design), built and loaded
+    once per process."""
     lib = ctypes.CDLL(build("bspline_inverse"))
     fn = lib.bspline_inverse_f32
+    fn.argtypes = ([ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_float] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.bspline_inverse_first_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int

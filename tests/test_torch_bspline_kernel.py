@@ -119,14 +119,15 @@ def test_bspline_inverse_wrapper_checks():
 
 class _Recorder:
     """Stands in for ``ops.bspline.bspline_inverse``: records each
-    call's layout and coefficient shape, runs the plain version."""
+    call's layout and coefficient shape, runs the plain version with the
+    call's extras."""
 
     def __init__(self):
         self.calls = []
 
-    def __call__(self, y, coeffs, layout):
+    def __call__(self, y, coeffs, layout, **extras):
         self.calls.append((layout, tuple(coeffs.shape)))
-        return ob.bspline_inverse_reference(y, coeffs, layout)
+        return ob.bspline_inverse_reference(y, coeffs, layout, **extras)
 
 
 def _layer_case(name):
