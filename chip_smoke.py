@@ -52,6 +52,8 @@ from seed 0, batch 100 (104 for the patches):
 * the flagship Glow-MNIST with ``activation="BSpline"`` (L=2 x K=16,
   width 512, a 5-bin B-spline activation in every step): a train step
   and ``Experiment.sample``, the B-spline inverse on its kernel,
+* the flagship on a 2 x 2 (data, model) mesh of 4 spawned ranks, its
+  coupling nets split over the model axis,
 
 in phases:
 
@@ -205,7 +207,16 @@ in phases:
      with the plain inverse on the same draws, timed, their launch calls;
      each block's round trip; the kernel against its plain version at the
      path's two shapes, timed beside its first design, the plain version
-     and the bound.
+     and the bound;
+ 18. the (data, model) mesh (:func:`phase_mesh`): the chain kernel at
+     B=50, forward and backward, against its plain version, timed; the
+     flagship at full width and depth on a 2 x 2 mesh of 4 ranks spawned
+     over gloo on the one card (:func:`mesh_flagship`: the coupling nets
+     split 256 + 256 over the model axis, 50 examples a data row, 3
+     steps): step 1's loss and gathered gradients against the one-process
+     step, the replicas and shards equal after every step, 32 + 32 chain
+     launches a step on each rank, all ``cluster``, ms/step and the
+     all-reduces' ms.
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -4244,6 +4255,274 @@ def phase_data_parallel(dev, gen, card, torch, _build):
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the (data, model) mesh on the flagship
+# ---------------------------------------------------------------------------
+MESH_NAME = "if_glow_mnist"
+MESH_SHAPE = (2, 2)
+MESH_STEPS = 3
+# the step-1 loss against the one-process step (the JAX test's bound)
+MESH_LOSS_RTOL = 1e-5
+# every coupling's w3, b3 and logs3 moved by this much normal noise before
+# the steps: at init they are 0, the nets' output is 0 whatever w1 and w2
+# hold, and the sharded weights would get no gradient
+MESH_PERTURB = 1e-3
+# chain launches a step on each rank: 32 solves forward, 32 backward
+MESH_STEP_LAUNCHES = (32, 32)
+
+
+def mesh_reference(flow, x, seed, n_data, torch):
+    """The one-process step of the unsharded ``flow`` on the global batch
+    ``x``: the mean over the data rows of the loss and of the gradients on
+    each row's slice with that row's generator (``rank_seed(seed, d)``),
+    the noise the mesh's ranks draw. Returns (loss, gradients by name)."""
+    from inverse_flow_tpu_torch import parallel as dp
+
+    named = [(n, p) for n, p in flow.named_parameters() if p.requires_grad]
+    loss, grads = 0.0, None
+    for d in range(n_data):
+        gen = torch.Generator(x.device).manual_seed(dp.rank_seed(seed, d))
+        l = -flow(dp.shard_batch(x, d, n_data), gen)[1].mean()
+        g = torch.autograd.grad(l, [p for _, p in named])
+        loss = loss + l.item() / n_data
+        grads = [a / n_data for a in g] if grads is None else \
+            [a + b / n_data for a, b in zip(grads, g)]
+    return loss, dict(zip((n for n, _ in named), grads))
+
+
+def mesh_flagship(dev, card):
+    """One rank of the flagship ``if_glow_mnist`` (L=2 x K=16
+    ``InvFlowNoPad``, coupling width 512, RQ spline; the registry's
+    training config: Adam lr 1e-5, warmup, ExponentialLR, clamp 0.01) on
+    a 2 x 2 (data, model) mesh of the world's 4 ranks: built from seed 0,
+    data init on the whole batch of 100 with the shared seed, every
+    coupling's ``w3``, ``b3``, ``logs3`` moved by ``MESH_PERTURB`` noise,
+    the nets sharded (``coupling_tp_shardings``: each width of 512 split
+    256 a rank); then ``MESH_STEPS`` steps, each on this data row's 50
+    with its own noise: forward and backward (the model group's
+    all-reduces in the nets), ``all_reduce_grads_``, ``apply_grads``.
+    Rank 0 holds step 1's loss within ``MESH_LOSS_RTOL`` and the gathered
+    gradients within ``GRAD_RTOL`` by norm against the one-process step
+    (:func:`mesh_reference`). After every step the replicated weights and
+    their Adam state must be bitwise equal on all ranks, each shard's in
+    its data group. Counts each rank's chain launches (forward and
+    backward, by variant, the counts set to 0 just before step 1), times
+    step 2 (host clock, synced), and in step 3 the model group's
+    all-reduces (3 for each sharded net: forward, the backward's recompute,
+    backward) and the gradient collectives (each synced). Returns them."""
+    import torch
+    import torch.distributed as dist
+
+    from inverse_flow_tpu_torch import parallel as dp
+    from inverse_flow_tpu_torch.experiments.registry import get_experiment
+    from inverse_flow_tpu_torch.ops import fused_chain
+    from inverse_flow_tpu_torch.parallel import mesh as tp
+    from inverse_flow_tpu_torch.train.optim import apply_grads, make_optimizer
+
+    rank = dist.get_rank()
+    label = f"mesh rank {rank}"
+    spec = get_experiment(MESH_NAME)
+    cfg = spec.config.replace(seed=0)
+    with warnings.catch_warnings(record=True):   # phase 5 printed it
+        warnings.simplefilter("always")
+        train = spec.load_data(batch_size=cfg.batch_size, seed=cfg.seed)[0]
+    x = torch.as_tensor(train.data[:cfg.batch_size], device=dev)
+    flow = spec.build_model(device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    mesh = dp.make_mesh_2d(*MESH_SHAPE)
+    n_data = MESH_SHAPE[0]
+    flow.data_init(x, torch.Generator(dev).manual_seed(cfg.seed))
+    gen = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for n, p in flow.named_parameters():
+            if n.rsplit(".", 1)[-1] in ("w3", "b3", "logs3"):
+                p.add_(MESH_PERTURB * torch.randn(p.shape, generator=gen,
+                                                  device=dev))
+    ref = mesh_reference(flow, x, cfg.seed, n_data, torch) if rank == 0 \
+        else None
+    specs = dp.coupling_tp_shardings(flow, mesh)
+    dp.apply_shardings(flow, specs, mesh)
+    params = [p for p in flow.parameters() if p.requires_grad]
+    shards = [p for p in params if dp.is_sharded(p)]
+    n_full = sum(p.numel() for p in params) + sum(
+        p.numel() * (mesh.shape["model"] - 1) for p in shards)
+    optimizer, scheduler = make_optimizer(cfg, params, len(train))
+    d = mesh.index("data")
+    gen = torch.Generator(dev).manual_seed(dp.rank_seed(cfg.seed, d))
+    xb = dp.shard_batch(x, d, n_data)
+    timing = {}
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = -flow(xb, gen)[1].mean()
+        loss.backward()
+        loss = loss.detach().reshape(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.all_reduce_grads_(params, mesh, extra=[loss])
+        torch.cuda.synchronize()
+        timing["grads_ms"] = 1e3 * (time.perf_counter() - t0)
+        apply_grads(cfg, optimizer, scheduler, params,
+                    model_group=mesh.model_group)
+        return loss.item()
+
+    bwd = [0]
+    solve_bwd = fused_chain.FusedChainSolve.backward
+
+    def counted_backward(ctx, gy):
+        before = fused_chain.chain_phases.launches
+        out = solve_bwd(ctx, gy)
+        bwd[0] += fused_chain.chain_phases.launches - before
+        return out
+
+    reduce_sum, reduces = tp._all_reduce_sum, {"n": 0, "s": 0.0}
+
+    def timed_reduce(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce_sum(t, group)
+        torch.cuda.synchronize()
+        reduces["n"] += 1
+        reduces["s"] += time.perf_counter() - t0
+        return out
+
+    losses = []
+    with mock.patch.object(fused_chain.FusedChainSolve, "backward",
+                           staticmethod(counted_backward)):
+        fused_chain.reset_launches()
+        for i in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 2:
+                with mock.patch.object(tp, "_all_reduce_sum", timed_reduce):
+                    losses.append(step())
+            else:
+                losses.append(step())
+            torch.cuda.synchronize()
+            if i == 1:
+                step_ms = 1e3 * (time.perf_counter() - t0)
+            if i == 0:
+                grads = {n: dp.gather_shard(p.grad, p.sharded_dim,
+                                            mesh.model_group)
+                         if dp.is_sharded(p) else p.grad
+                         for n, p in flow.named_parameters()
+                         if p.requires_grad}
+            if not dp.mesh_replicas_equal(params, mesh, optimizer):
+                fail(f"{label}: the replicas differ after step {i + 1}")
+        launches = fused_chain.chain_phases.launches
+    by = dict(fused_chain.chain_phases.launches_by_variant)
+    cluster_only(f"{label} {MESH_STEPS} steps", launches)
+    fwd_bwd = (launches - bwd[0], bwd[0])
+    if fwd_bwd != tuple(n * MESH_STEPS for n in MESH_STEP_LAUNCHES):
+        fail(f"{label}: {fwd_bwd[0]} + {fwd_bwd[1]} chain launches in "
+             f"{MESH_STEPS} steps, expected {MESH_STEP_LAUNCHES} a step")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: losses {losses}")
+    # each sharded net (32 couplings, the SplitPrior's; a RepeatedBlock's
+    # coupling runs K nets on its stacked weights) sums over its model
+    # group in the forward, in the backward's recompute and in the backward
+    nets = sum(m.w1.shape[0] if m.w1.ndim == 5 else 1
+               for m in flow.modules()
+               if getattr(m, "model_group", None) is not None)
+    if reduces["n"] != 3 * nets:
+        fail(f"{label}: {reduces['n']} model-group all-reduces in a step, "
+             f"expected 3 for each of {nets} sharded nets")
+    out = dict(losses=losses, batch=cfg.batch_size, launches=fwd_bwd, by=by,
+               step_ms=step_ms, nets=nets, reduces=reduces["n"], reduce_ms=1e3 * reduces["s"],
+               grads_ms=timing["grads_ms"], n_params=n_full,
+               n_shard=sum(p.numel() for p in shards))
+    if rank == 0:
+        ref_loss, ref_grads = ref
+        out["loss_rel"] = abs(losses[0] - ref_loss) / abs(ref_loss)
+        out["grad_rel"] = max(
+            ((g - ref_grads[n]).norm() / ref_grads[n].norm()).item()
+            for n, g in grads.items() if ref_grads[n].norm() > 0)
+        print(f"mesh: {MESH_NAME} at {MESH_SHAPE[0]} x {MESH_SHAPE[1]} "
+              f"(data x model), {n_full} params, {out['n_shard']} of them "
+              f"in this rank's shards; step-1 loss {losses[0]:.6f} against "
+              f"the one-process step's {ref_loss:.6f} (same weights and "
+              f"noise): rel err {out['loss_rel']:.3e} (tol "
+              f"{MESH_LOSS_RTOL:.0e}); gathered gradients: max over "
+              f"{len(grads)} tensors of |g - g_ref| / |g_ref| "
+              f"{out['grad_rel']:.3e} (tol {GRAD_RTOL:.0e})", flush=True)
+        if not (out["loss_rel"] <= MESH_LOSS_RTOL
+                and out["grad_rel"] <= GRAD_RTOL):
+            fail("the mesh's step-1 loss or gradients disagree with the "
+                 "one-process step")
+    return out
+
+
+def mesh_summary(ranks, how, card):
+    """Prints what :func:`mesh_flagship` returned on every rank (``how``:
+    the backend and cards) and fails unless every rank holds rank 0's
+    data-averaged losses; returns rank 0's (forward, backward) chain
+    launches."""
+    r0, size = ranks[0], len(ranks)
+    for rank, r in enumerate(ranks):
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(r["losses"],
+                                                          r0["losses"])):
+            fail(f"mesh: rank {rank}'s losses {r['losses']} are not rank "
+                 f"0's {r0['losses']}")
+    fwd, bwd = r0["launches"]
+    print(f"mesh: {MESH_STEPS} steps of {r0['batch']} "
+          f"({r0['batch'] // MESH_SHAPE[0]} a data row): losses "
+          f"{', '.join(f'{v:.4f}' for v in r0['losses'])}; replicated "
+          f"weights and Adam state bitwise equal on all {size} ranks and "
+          f"each shard's in its data group after every step; chain kernel "
+          f"launches a step on each rank {fwd // MESH_STEPS} forward + "
+          f"{bwd // MESH_STEPS} backward (by variant over the {MESH_STEPS} "
+          f"steps: {r0['by']}) {card}", flush=True)
+    print(f"mesh: step 2 {statistics.fmean(r['step_ms'] for r in ranks):.3f} "
+          f"ms (host clock, synced; mean over the {size} ranks, rank 0 "
+          f"{r0['step_ms']:.3f}); in step 3 the model groups' all-reduces "
+          f"({r0['reduces']} a step on each rank: forward, recompute and "
+          f"backward of {r0['nets']} nets) {r0['reduce_ms']:.3f} ms and the "
+          f"gradient collectives {r0['grads_ms']:.3f} ms on rank 0, each "
+          f"synced; {how} {card}", flush=True)
+    return fwd, bwd
+
+
+def mesh_rank(rank, size, card):
+    """A spawned rank of phase 18: every rank on card 0
+    (:func:`_dp_rank_start`), :func:`mesh_flagship`."""
+    import torch
+
+    return mesh_flagship(_dp_rank_start(torch, rank), card)
+
+
+def phase_mesh(dev, gen, card, torch, _build):
+    """Phase 18: the flagship on a 2 x 2 (data, model) mesh of 4 ranks
+    spawned over gloo on the one card (NCCL refuses two ranks on one
+    device; gloo all-reduces CUDA tensors through the host), 50 examples a
+    data row: :func:`mesh_flagship` on every rank. First the chain kernel
+    at the ranks' launch shapes, B=50, forward and backward, against its
+    plain version and timed (:func:`rows_at`). Prints the launches a step
+    by variant, ms/step and the all-reduce ms; returns the summary entries
+    of the B=50 rows with rank 0's launches."""
+    from inverse_flow_tpu_torch import parallel as dp
+
+    t0 = time.perf_counter()
+    b = BATCH // MESH_SHAPE[0]
+    rows = rows_at(f"mesh B={b}", FLAGSHIP_SHAPES, ("TL",), b, 20, 4, gen,
+                   dev, card, torch, _build)
+    torch.cuda.empty_cache()
+    out = os.path.join(HERE, "build", "mesh")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    size = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t1 = time.perf_counter()
+    try:
+        ranks = dp.spawn(mesh_rank, size, f"file://{out}/pg",
+                         backend="gloo", args=(card,), timeout=DP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"mesh: {e}")
+    spawn_s = time.perf_counter() - t1
+    fwd, bwd = mesh_summary(ranks, "gloo, 4 ranks on one card", card)
+    print(f"mesh: world of {size} in {spawn_s:.1f} s; phase 18 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return [dict(rows[0], launches=fwd), dict(rows[1], launches=bwd)]
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: the B-spline Glow-MNIST's sampling path
 # ---------------------------------------------------------------------------
 
@@ -4660,7 +4939,11 @@ def main():
     bspline_row, bspline_launches = phase_bspline_glow(dev, card, torch)
     phase_done(17)
 
-    print(f"smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 18. the flagship on the (data, model) mesh ---------------------
+    mesh_rows = phase_mesh(dev, gen, card, torch, _build)
+    phase_done(18)
+
+    print(f"smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -4736,7 +5019,12 @@ def main():
         # P, Pb), launches: its 3 train steps at a world of one over NCCL
         # (in its spawned process, the counts set to 0 just before)
         entry("chain_phases:dp_b250", **dp_rows[0]),
-        entry("chain_phases:dp_b250_backward", **dp_rows[1])]}),
+        entry("chain_phases:dp_b250_backward", **dp_rows[1]),
+        # phase 18: the flagship's N=1 TL launch at a data row's B=50,
+        # launches: rank 0's 3 steps on the 2 x 2 mesh (in its spawned
+        # process, the counts set to 0 just before)
+        entry("chain_phases:mesh_b50", **mesh_rows[0]),
+        entry("chain_phases:mesh_b50_backward", **mesh_rows[1])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

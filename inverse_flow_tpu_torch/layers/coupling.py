@@ -18,6 +18,14 @@ gives per element; its inverse is the net, one kernel launch on the card
 (:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`, which reads
 the coefficients channel-major, as the net gives them, and the second half
 where it lies, and does the maps and the tails) and the ``cat``.
+
+Under a (data, model) mesh (:func:`~inverse_flow_tpu_torch.parallel.
+apply_shardings`) a net holds this rank's slice of the width, ``w1``'s
+output channels and ``w2``'s input channels, and its ``model_group``: its
+input goes through :func:`~inverse_flow_tpu_torch.parallel.copy_to_model`
+and ``w2``'s partial output through ``reduce_from_model``, so the net's
+output and every gradient after it are those of the whole net. Without a
+group the net is the one-device net.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import bspline
 from ..ops.bspline import clip01, monotone_cubic_b_spline
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .base import FlowLayer, sum_except_batch
 
 
@@ -56,6 +65,9 @@ class Coupling(FlowLayer):
     """Affine coupling on channel halves: the first C//2 channels of
     ``input_size`` (C, H, W) condition the transform of the rest."""
 
+    #: the process group over which a sharded net sums (None: unsharded)
+    model_group = None
+
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  logscale_factor: float = 3.0, remat_net: bool = False,
                  compute_dtype: str = "float32", generator=None,
@@ -74,8 +86,14 @@ class Coupling(FlowLayer):
 
     def _net(self, p, x1):
         dt = self.compute_dtype             # .to(float32) returns its input
+        group = self.model_group
+        if group is not None:
+            x1 = copy_to_model(x1, group)
         h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
-        h = F.relu(F.conv2d(h, p["w2"].to(dt)))
+        h = F.conv2d(h, p["w2"].to(dt))
+        if group is not None:
+            h = reduce_from_model(h, group)
+        h = F.relu(h)
         if dt == torch.float32:
             h = F.conv2d(h, p["w3"], p["b3"], padding=1)
         else:
@@ -115,6 +133,9 @@ class BSplineCoupling(FlowLayer):
     the identity outside. Zero init makes the spline the identity, so the
     layer starts as one."""
 
+    #: the process group over which a sharded net sums (None: unsharded)
+    model_group = None
+
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  n_bins: int = 8, tail_bound: float = 10.0,
                  logscale_factor: float = 3.0, generator=None, device=None):
@@ -135,8 +156,14 @@ class BSplineCoupling(FlowLayer):
     def _net(self, p, x1):
         """(B, (C - C//2) * (n_bins + 3), H, W) spline coefficients,
         channel-major: coefficient k of channel c at c * (n_bins + 3) + k."""
+        group = self.model_group
+        if group is not None:
+            x1 = copy_to_model(x1, group)
         h = F.relu(F.conv2d(x1, p["w1"], padding=1))
-        h = F.relu(F.conv2d(h, p["w2"]))
+        h = F.conv2d(h, p["w2"])
+        if group is not None:
+            h = reduce_from_model(h, group)
+        h = F.relu(h)
         h = F.conv2d(h, p["w3"], p["b3"], padding=1)
         return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
             1, -1, 1, 1)

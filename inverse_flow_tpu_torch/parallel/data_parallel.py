@@ -10,14 +10,15 @@ its own noise (``fold_in(rng, axis_index)``: here a generator seeded by
 averaged over the ranks before the replicated optimizer step
 (``jax.lax.pmean``). The process group comes from ``torchrun``'s
 environment (:func:`init_from_env`); without one the world is a single
-rank, as JAX on one device builds no mesh. Not ported: the 2-D
-(data, model) mesh and the coupling nets' tensor-parallel shardings
-(``make_mesh_2d``, ``coupling_tp_shardings``).
+rank, as JAX on one device builds no mesh. The 2-D (data, model) mesh and
+the coupling nets' tensor-parallel shardings (``make_mesh_2d``,
+``coupling_tp_shardings``) are :mod:`.mesh`'s.
 
-Every collective here runs on the default process group. NCCL takes CUDA
-tensors only; gloo takes CPU tensors and, for all-reduce and broadcast,
-CUDA tensors too (through the host). The checksum exchange of
-:func:`replicas_equal` goes through the host under gloo.
+The collectives here run on the default process group, or on the
+``group`` they are given (a row or column of a :class:`~.mesh.Mesh`).
+NCCL takes CUDA tensors only; gloo takes CPU tensors and, for all-reduce
+and broadcast, CUDA tensors too (through the host). The checksum exchange
+of :func:`replicas_equal` goes through the host under gloo.
 """
 
 from __future__ import annotations
@@ -88,14 +89,14 @@ def shard_batch(x, rank: int, size: int):
     return x[rank * per:(rank + 1) * per]
 
 
-def _flat_all_reduce_(tensors, mean: bool):
+def _flat_all_reduce_(tensors, mean: bool, group):
     tensors = list(tensors)
     if not tensors or not dist.is_initialized():
         return tensors
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     if mean:
-        flat.div_(dist.get_world_size())
+        flat.div_(dist.get_world_size(group))
     offset = 0
     with torch.no_grad():
         for t in tensors:
@@ -105,17 +106,19 @@ def _flat_all_reduce_(tensors, mean: bool):
     return tensors
 
 
-def all_reduce_mean_(tensors: Iterable[torch.Tensor]):
-    """Each tensor replaced in place by its mean over the ranks, through
-    one flat float32 buffer and one all-reduce (``jax.lax.pmean``).
-    Without a group the tensors stay as they are."""
-    return _flat_all_reduce_(tensors, mean=True)
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group=None):
+    """Each tensor replaced in place by its mean over the ranks of
+    ``group`` (the default group when None), through one flat float32
+    buffer and one all-reduce (``jax.lax.pmean``). Without a process
+    group the tensors stay as they are."""
+    return _flat_all_reduce_(tensors, True, group)
 
 
-def all_reduce_sum_(tensors: Iterable[torch.Tensor]):
-    """Each tensor replaced in place by its sum over the ranks, through
-    one flat buffer and one all-reduce (``jax.lax.psum``)."""
-    return _flat_all_reduce_(tensors, mean=False)
+def all_reduce_sum_(tensors: Iterable[torch.Tensor], group=None):
+    """Each tensor replaced in place by its sum over the ranks of
+    ``group`` (the default group when None), through one flat buffer and
+    one all-reduce (``jax.lax.psum``)."""
+    return _flat_all_reduce_(tensors, False, group)
 
 
 def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0):
@@ -143,17 +146,19 @@ def _checksum(t: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum().reshape(1)
 
 
-def replicas_equal(tensors: Iterable[torch.Tensor]) -> bool:
-    """Whether every rank holds bitwise the same ``tensors`` (parameters,
-    buffers, optimizer state, on any device): their checksums,
-    all-gathered and compared. True without a group."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+def replicas_equal(tensors: Iterable[torch.Tensor], group=None) -> bool:
+    """Whether every rank of ``group`` (the default group when None)
+    holds bitwise the same ``tensors`` (parameters, buffers, optimizer
+    state, on any device): their checksums, all-gathered and compared.
+    True without a process group."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return True
     device = torch.device("cuda", torch.cuda.current_device()) \
-        if dist.get_backend() == "nccl" else torch.device("cpu")
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
     sums = torch.cat([_checksum(t).to(device) for t in tensors])
-    gathered = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
-    dist.all_gather(gathered, sums)
+    gathered = [torch.empty_like(sums)
+                for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, sums, group=group)
     return all(torch.equal(g, gathered[0]) for g in gathered[1:])
 
 

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import clip_grad_norm_
 from .config import ExperimentConfig
 
 
@@ -86,18 +87,27 @@ def make_optimizer(cfg: ExperimentConfig, params, steps_per_epoch: int):
     return opt, scheduler
 
 
-def apply_grads(cfg: ExperimentConfig, optimizer, scheduler, params):
+def apply_grads(cfg: ExperimentConfig, optimizer, scheduler, params,
+                model_group=None):
     """The update after a backward, as the JAX ``apply_grads``: a
     parameter without a gradient gets a zero one (optax updates every
     leaf, so Adam's moments still advance), then the optional
     global-norm clip, the optimizer and scheduler steps, and every
     parameter clamped to ``+-cfg.weight_clamp``. ``clip_grad_norm_``
-    scales by ``max_norm / (norm + 1e-6)``, optax by ``max_norm / norm``."""
+    scales by ``max_norm / (norm + 1e-6)``, optax by ``max_norm / norm``.
+    Under a (data, model) mesh pass its ``model_group``: the clip then
+    takes the norm of the whole weights, the shards' sums of squares
+    summed over the group (:func:`~inverse_flow_tpu_torch.parallel.
+    clip_grad_norm_`); Adam and the clamp work element by element, on a
+    shard as on the whole."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     if cfg.grad_clip_norm is not None:
-        torch.nn.utils.clip_grad_norm_(params, cfg.grad_clip_norm)
+        if model_group is None:
+            torch.nn.utils.clip_grad_norm_(params, cfg.grad_clip_norm)
+        else:
+            clip_grad_norm_(params, cfg.grad_clip_norm, model_group)
     optimizer.step()
     scheduler.step()
     if cfg.weight_clamp:

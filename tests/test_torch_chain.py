@@ -243,7 +243,8 @@ def test_port_imports_no_jax():
     assert {f"inverse_flow_tpu_torch.{m}" for m in (
         "cli", "data.digits", "data.patches", "experiments.real_data",
         "experiments.registry", "ops.activations", "train.checkpoint",
-        "utils.profiling", "parallel", "parallel.data_parallel", "native",
+        "utils.profiling", "parallel", "parallel.data_parallel",
+        "parallel.mesh", "native",
         "data.toy", "data.galaxy")} <= set(mods)
     assert {f"inverse_flow_tpu_torch.{m}" for m in (
         "layers.convexp", "layers.gaussianize", "layers.splines",

@@ -1,5 +1,6 @@
 """Functions that the port's multi-process tests run in processes of
-their own: the ranks of ``tests/test_torch_parallel.py``, started by
+their own: the ranks of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_mesh.py``, started by
 ``inverse_flow_tpu_torch.parallel.spawn`` inside a gloo group on the CPU,
 which build their flows and loaders from the numpy arrays they are given
 and return numpy arrays and numbers; and the concurrent native build of
@@ -11,17 +12,21 @@ import copy
 from unittest import mock
 
 import torch
+import torch.distributed as dist
 
 from inverse_flow_tpu_torch import native
+from inverse_flow_tpu_torch import parallel as dp
 from inverse_flow_tpu_torch.data import synthetic
 from inverse_flow_tpu_torch.data.loader import ArrayLoader
 from inverse_flow_tpu_torch.distributions import GaussianPrior
-from inverse_flow_tpu_torch.layers import (ActNorm, Coupling, Flow,
-                                           InvFlowUnit, SelfNormConv)
+from inverse_flow_tpu_torch.layers import (ActNorm, BSplineCoupling,
+                                           Coupling, Flow, InvFlowUnit,
+                                           RepeatedBlock, SelfNormConv)
 from inverse_flow_tpu_torch.models.glow import build_glow
 from inverse_flow_tpu_torch.train import experiment as texperiment
 from inverse_flow_tpu_torch.train.config import ExperimentConfig
 from inverse_flow_tpu_torch.train.experiment import Experiment
+from inverse_flow_tpu_torch.train.optim import apply_grads, make_optimizer
 
 SIZE = (2, 8, 8)
 TINY = (1, 8, 8)
@@ -260,3 +265,161 @@ def cli_under_torchrun(rank, size, name, workdir):
     with contextlib.redirect_stdout(out):
         rc = cli.main(["--name", name, "--smoke", "--cpu"])
     return dict(rc=rc, out=out.getvalue(), world=tuple(parallel.world()))
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh: tests/test_torch_mesh.py
+# ---------------------------------------------------------------------------
+
+SPLINE_SIZE = (4, 4, 4)
+
+
+def tp_glow(width=16, remat=True, dtype="float32"):
+    """``test_coupling_tp_sharding_matches_replicated``'s Glow: L=1 x K=2
+    ``InvFlowNoPad`` steps, SLR, each coupling net checkpointed
+    (``remat``) unless asked, in ``dtype``."""
+    return build_glow(TINY, step_kind="inv_conv_no_pad", num_blocks=1,
+                      block_size=2, coupling_width=width, actnorm=True,
+                      split_prior=True, activation="SLR",
+                      coupling_remat=remat, coupling_dtype=dtype,
+                      device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def tp_bspline():
+    """ActNorm and a ``BSplineCoupling`` of width 16 on (4, 4, 4)."""
+    g = torch.Generator().manual_seed(0)
+    return Flow(GaussianPrior(SPLINE_SIZE),
+                [ActNorm(4, generator=g),
+                 BSplineCoupling(SPLINE_SIZE, width=16, generator=g)])
+
+
+def tp_bspline_block():
+    """A ``RepeatedBlock`` of 3 (ActNorm, ``BSplineCoupling``) steps, the
+    weights stacked on a leading K."""
+    g = torch.Generator().manual_seed(0)
+    return Flow(GaussianPrior(SPLINE_SIZE), [RepeatedBlock(
+        lambda: [ActNorm(4, generator=g),
+                 BSplineCoupling(SPLINE_SIZE, width=16, generator=g)], 3)])
+
+
+MESH_FLOWS = {"glow": tp_glow,
+              "glow_no_remat": lambda: tp_glow(remat=False),
+              "glow_bf16": lambda: tp_glow(dtype="bfloat16"),
+              "glow_width6": lambda: tp_glow(width=6),
+              "bspline": tp_bspline, "bspline_block": tp_bspline_block}
+
+
+def mesh_flow(name, state):
+    """``MESH_FLOWS[name]`` with the weights ``state`` (numpy, by name)."""
+    flow = MESH_FLOWS[name]()
+    flow.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return flow
+
+
+def body(flow):
+    """The layers after a Glow's dequantization (its noise comes in with
+    the input), or the flow itself."""
+    if type(flow.layers[0]).__name__ == "Dequantization":
+        return Flow(flow.base_distribution, flow.layers[1:])
+    return flow
+
+
+def mesh_grads(flow, mesh, x, generator=None):
+    """A step's forward, backward and gradient collectives on this data
+    row's slice of the global batch ``x``: the loss, averaged over the
+    data axis."""
+    params = [p for p in flow.parameters() if p.requires_grad]
+    for p in params:
+        p.grad = None
+    xb = dp.shard_batch(x, mesh.index("data"), mesh.shape["data"])
+    loss = -flow(xb, generator)[1].mean()
+    loss.backward()
+    loss = loss.detach().reshape(1)
+    dp.all_reduce_grads_(params, mesh, extra=[loss])
+    return float(loss)
+
+
+def gathered(flow, mesh, what):
+    """``what(p)`` of every parameter, by name, each shard all-gathered
+    over the model group, as numpy."""
+    out = {}
+    for name, p in flow.named_parameters():
+        t = what(p)
+        if dp.is_sharded(p):
+            t = dp.gather_shard(t, p.sharded_dim, mesh.model_group)
+        out[name] = t.detach().numpy().copy()
+    return out
+
+
+def mesh_cases(rank, size, shape, cases, cfg, noise_case):
+    """:func:`mesh_guards`; then at a (data, model) mesh of ``shape``:
+    where this rank sits and its groups; for each (name, state, x, z) of
+    ``cases``, ``mesh_flow(name, state)`` sharded by
+    ``coupling_tp_shardings``, then on its body (:func:`body`, x the input
+    after dequantization): ``Flow.sample`` of the base draws ``z`` and a
+    ``reconstruct`` of x, one step (the loss,
+    the gathered gradients, their global norm, the gathered weights after
+    ``apply_grads`` of ``cfg``, whether the replicas are equal); and for
+    ``noise_case`` (name, state, x, seed) the whole flow's data init on x
+    with the shared seed, then a step's loss with each data row's own
+    noise (``rank_seed(seed, data index)``)."""
+    _one_thread()
+    guards = mesh_guards(rank, size)
+    mesh = dp.make_mesh_2d(*shape)
+    out = dict(guards=guards, coords=mesh.coords,
+               data_ranks=dist.get_process_group_ranks(mesh.data_group),
+               model_ranks=dist.get_process_group_ranks(mesh.model_group))
+    for name, state, x, z in cases:
+        flow = mesh_flow(name, state)
+        specs = dp.coupling_tp_shardings(flow, mesh)
+        dp.apply_shardings(flow, specs, mesh)
+        net = body(flow)
+        x = torch.from_numpy(x)
+        r = dict(sample=net.sample(len(z), noise={"base": torch.from_numpy(
+            z)}).numpy(),
+            recon=net.reconstruct(x, torch.Generator().manual_seed(0))
+            .numpy())
+        params = [p for p in flow.parameters() if p.requires_grad]
+        optimizer, scheduler = make_optimizer(cfg, params, 1)
+        r["loss"] = mesh_grads(net, mesh, x)
+        r["grads"] = gathered(flow, mesh, lambda p: p.grad)
+        r["norm"] = float(dp.clip_grad_norm_(params, float("inf"),
+                                             mesh.model_group))
+        apply_grads(cfg, optimizer, scheduler, params,
+                    model_group=mesh.model_group)
+        r["equal"] = dp.mesh_replicas_equal(list(flow.parameters()), mesh,
+                                            optimizer)
+        r["params"] = {k: v.numpy().copy() for k, v in
+                       dp.gather_shardings(flow, specs, mesh).items()}
+        r["shards"] = sorted(n for n, p in flow.named_parameters()
+                             if dp.is_sharded(p))
+        out[name] = r
+    if noise_case is not None:
+        name, state, x, seed = noise_case
+        flow = mesh_flow(name, state)
+        x = torch.from_numpy(x)
+        flow.data_init(x, torch.Generator().manual_seed(seed))
+        dp.apply_shardings(flow, dp.coupling_tp_shardings(flow, mesh), mesh)
+        gen = torch.Generator().manual_seed(
+            dp.rank_seed(seed, mesh.index("data")))
+        out["noise_loss"] = mesh_grads(flow, mesh, x, gen)
+    return out
+
+
+def mesh_guards(rank, size):
+    """``make_mesh`` and ``make_mesh_2d`` in this world: the messages of
+    the requests it cannot hold, and where a mesh of the whole world and a
+    (1, 2) mesh put this rank."""
+    errors = []
+    for make, args in ((dp.make_mesh, (size + 1,)),
+                       (dp.make_mesh_2d, (size, 2))):
+        try:
+            make(*args)
+        except ValueError as e:
+            errors.append(str(e))
+    one = dp.make_mesh()
+    row = dp.make_mesh_2d(1, 2)
+    return dict(errors=errors, one=(one.size, one.coords),
+                row=(row.size, row.coords,
+                     None if row.coords is None else
+                     dist.get_process_group_ranks(row.model_group)))
