@@ -54,6 +54,11 @@ from seed 0, batch 100 (104 for the patches):
   and ``Experiment.sample``, the B-spline inverse on its kernel,
 * the flagship on a 2 x 2 (data, model) mesh of 4 spawned ranks, its
   coupling nets split over the model axis,
+* the port's bench entry point (``python -m inverse_flow_tpu_torch.bench``)
+  and the five ``bench.py`` configurations no other phase builds: the
+  flagship on four-order units (``glow_mnist_fused_units``) and with bf16
+  coupling nets, ``imagenet32_exact``, and the Fig. 4 squares at s = 64
+  and 128,
 
 in phases:
 
@@ -110,8 +115,8 @@ in phases:
      loop and two bounds, on the steps these inputs need and on 100 steps
      (:func:`check_slr`);
      imagenet32's sampling on phase 8's model, 144 SLR-kernel launches per
-     sample, ``Flow.sample`` and ``Experiment.sample`` with the kernel and
-     the plain loop in turns (:func:`sample_imagenet32`);
+     sample, ``Flow.sample`` with the kernel and the plain loop in turns,
+     ``Experiment.sample`` with the kernel (:func:`sample_imagenet32`);
      ``real_digits_glow`` and ``real_patches_glow`` through ``run()``, held
      against the TPU artifacts in ``results/`` (:func:`phase_real_data`);
      a resume from a checkpoint (:func:`phase_resume`) and the CLI's smoke
@@ -216,7 +221,20 @@ in phases:
      steps): step 1's loss and gathered gradients against the one-process
      step, the replicas and shards equal after every step, 32 + 32 chain
      launches a step on each rank, all ``cluster``, ms/step and the
-     all-reduces' ms.
+     all-reduces' ms;
+ 19. the bench (:func:`phase_bench`): the five configurations of
+     ``bench.py`` that no other phase builds, at full width and depth
+     with the bench's data init: ``glow_mnist_fused_units`` (the N=4 unit
+     at the flagship's shapes against its plain version and timed, row
+     E0; a step, 32 + 32 launches, against the plain chain),
+     ``glow_mnist_bf16_couplings`` (a step against the plain chain and
+     against itself, the bf16 value check against float32 nets),
+     ``imagenet32_exact`` (loss and gradients bitwise ``imagenet32``'s on
+     the same weights under deterministic algorithms, 288 launches a
+     step) and ``timescale_s64`` / ``_s128`` (a step, 2 + 2
+     launches, against the plain chain); ``bench.bench_config`` on each
+     (2 rounds of 1 step); and ``python -m inverse_flow_tpu_torch.bench``
+     in a subprocess, its last line the flagship's on this card.
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -246,9 +264,17 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from unittest import mock
 
+from inverse_flow_tpu_torch.utils import profiling
+from inverse_flow_tpu_torch.utils.profiling import ab_ms, time_ms
+
 HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "chiprun_out")
+# device busy ms, launch calls and idle share of a few calls; the table of
+# device ms by op goes to chiprun_out/profile_<name>.txt
+device_profile = partial(profiling.device_profile, out_dir=OUT)
 BATCH = 100
 EVAL_EXAMPLES = 300
 TRAIN_EXAMPLES = 1000
@@ -321,41 +347,6 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, reps, torch, ahead=False):
-    """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events.
-    ``ahead``: the device first sleeps for about ``reps`` x 50 us (times
-    ``ahead`` where it is a number), so that the host queues the calls
-    before the device reaches them and the events time the device's work,
-    not the host's launch rate (a chain launch of 10-20 us takes about as
-    long to enqueue)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if ahead:
-        # cycles, about 1.9 GHz
-        torch.cuda._sleep(int(ahead) * reps * 100_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def ab_ms(fns, reps, rounds, torch, ahead=False):
-    """Median ms per call of each of ``fns`` (dict), timed in turns
-    (a, b, b, a, ...) after one warm-up call each (``ahead``: see
-    :func:`time_ms`)."""
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    keys = list(fns)
-    for r in range(rounds):
-        for k in (keys if r % 2 == 0 else keys[::-1]):
-            times[k].append(time_ms(fns[k], reps, torch, ahead))
-    return {k: statistics.median(v) for k, v in times.items()}
-
-
 def raster_perm(c, h, w, order, torch, device=None):
     """The NCHW-flattened indices of one image in ``order``'s raster
     order: rows of H (reversed when the order flips H), pixels of W
@@ -414,37 +405,11 @@ def chain_bound(args, torch):
     """(bound_ms, bound_by, multiply-adds per batch row) of one
     :func:`chain_phases` launch on ``args``: the larger of the
     multiply-adds this launch's data needs at the fp32 peak, and its bytes
-    at the HBM rate.
+    at the HBM rate, both counted by ``fused_chain.chain_work``."""
+    from inverse_flow_tpu_torch.ops.fused_chain import chain_work
 
-    Multiply-adds: at every block step, for each live output column, the
-    nonzero entries of its row of T but a diagonal 1 (T is a permuted
-    triangle: a unit diagonal is a copy, an Emerging kernel's is a
-    product, and the upper half is zero), and,
-    after a scan's first block, of its row of G; each only over the live
-    columns it multiplies (a padded tail column is always zero). Bytes: x
-    read and every phase output written once, and those entries of T and
-    the nonzero entries of G read once."""
-    xb, t_all, g_all, dirs, kcw, pad_cw = args
-    nb, b, rcw = xb.shape
-    t_nz = (t_all != 0) & ~(torch.eye(rcw, dtype=torch.bool,
-                                      device=t_all.device) & (t_all == 1))
-    g_nz = g_all != 0
-    full = torch.ones(rcw, dtype=torch.bool, device=t_all.device)
-    tail = torch.arange(rcw, device=t_all.device) < rcw - pad_cw
-    fma = 0
-    for o, flip_h in enumerate(dirs):
-        prev = None
-        for i in range(nb):
-            m = nb - 1 - i if flip_h else i
-            live = tail if m == nb - 1 else full
-            fma += int(t_nz[o][live][:, live].sum())
-            if prev is not None:
-                carried = prev[:kcw] if flip_h else prev[rcw - kcw:]
-                fma += int(g_nz[o][live][:, carried].sum())
-            prev = live
-    ops_ms = 2 * fma * b / PEAK_FP32_FLOPS * 1e3
-    n_bytes = 4 * ((1 + len(dirs)) * xb.numel() + int(t_nz.sum())
-                   + int(g_nz.sum()))
+    fma, n_bytes = chain_work(args)
+    ops_ms = 2 * fma * args[0].shape[1] / PEAK_FP32_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations", fma
@@ -493,7 +458,7 @@ def time_launch(x, ws, orders, backward, reps, rounds, torch,
                    "plain": lambda: fused_chain.chain_phases_reference(
                        *args),
                    "library": library}, reps=reps, rounds=rounds,
-                  torch=torch, ahead=True)
+                  ahead=True)
     return t, chain_bound(args, torch), lib_err
 
 
@@ -625,71 +590,6 @@ def mean_row(rows, bound_by):
                 library_ms=means[3], bound_ms=means[4], bound_by=bound_by)
 
 
-def device_profile(name, unit, fn, n, card, torch):
-    """``n`` calls of ``fn`` under ``torch.profiler``: host ms per call,
-    device busy ms (the union of device intervals), idle share, device
-    ops, kernel launch calls, and device ms by op, per ``unit``; the
-    table of device ms by op goes to ``chiprun_out/profile_<name>.txt``.
-    Returns (busy ms, launches) per call.
-
-    It reads the profiler's raw events (``kineto_results.events()``), not
-    ``prof.events()``/``key_averages()``: those build an event tree that
-    took 50 s of host time for one imagenet32 step on the H100's host
-    (this 3.6 s). A device op's time goes to the op that launched it
-    (``linked_correlation_id``), as ``key_averages``' self device time
-    does."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        prof_ms = 1e3 * (time.perf_counter() - t0) / n
-    print(f"profile: {name} {prof_ms:.3f} ms/{unit} under the profiler "
-          f"({n} calls) {card}", flush=True)
-
-    def api_call(op):                   # cudaLaunchKernel, cuLaunchKernel
-        return op[:4] == "cuda" or op[:2] == "cu" and op[2:3].isupper()
-
-    events = prof.profiler.kineto_results.events()
-    op_names, calls, launches, spans = {}, {}, 0, []
-    for e in events:
-        if e.device_type() == DeviceType.CUDA:
-            spans.append((e.start_ns(), e.end_ns(),
-                          e.linked_correlation_id()))
-        elif e.name().startswith("cudaLaunch"):
-            launches += 1
-        elif not api_call(e.name()):
-            op_names[e.correlation_id()] = e.name()
-            calls[e.name()] = calls.get(e.name(), 0) + 1
-    spans.sort()
-    busy, end, by_op = 0, float("-inf"), {}
-    for a, b, op in spans:              # union of device intervals, ns
-        busy += max(0, b - max(a, end))
-        end = max(end, b)
-        key = op_names.get(op, "(no op)")
-        by_op[key] = by_op.get(key, 0) + b - a
-    busy_ms = busy / 1e6 / n
-    print(f"profile: {name} device busy {busy_ms:.3f} ms/{unit} of "
-          f"{prof_ms:.3f} (idle share {1 - busy_ms / prof_ms:.3f}); "
-          f"{len(spans) / n:.0f} device ops and {launches / n:.0f} kernel "
-          f"launch calls per {unit} {card}", flush=True)
-    rows = [f"{k} {v / n / 1e6:.3f} ({calls.get(k, 0) // n})"
-            for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])]
-    print(f"profile: {name} device ms/{unit} by op: " + ", ".join(rows[:8]),
-          flush=True)
-    out = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"profile_{name}.txt"), "w") as f:
-        f.write(f"{card} {name}, {n} calls; device ms/{unit} by op "
-                f"(calls/{unit})\n" + "\n".join(rows[:60]) + "\n")
-    return busy_ms, launches / n
-
-
 def profile_eval(flow, x, generator, card, torch):
     """Where the time of one eval batch goes.
 
@@ -718,14 +618,14 @@ def profile_eval(flow, x, generator, card, torch):
         # in turns, as the pass is host-bound and its time drifts
         events_ms, host_ms = [], []
         for _ in range(6):
-            events_ms.append(time_ms(batch, 3, torch))
+            events_ms.append(time_ms(batch, 3))
             host_ms.append(wall_ms(3))
     for name, ms in (("CUDA events", events_ms), ("the host clock", host_ms)):
         print(f"profile: eval ms/batch by {name}, 6 rounds of 3 batches: "
               f"{', '.join(f'{t:.3f}' for t in ms)} (median "
               f"{statistics.median(ms):.3f}) {card}", flush=True)
     with torch.inference_mode():
-        device_profile("eval", "batch", batch, 2, card, torch)
+        device_profile("eval", "batch", batch, 2, card)
     host_by_layer(flow, "forward_with", batch, "eval batch", torch)
 
 
@@ -818,32 +718,51 @@ def counted_epoch(exp, first, torch):
     return [float(v) for v in losses], mean_loss, launches, bwd[0], init_state
 
 
-def check_grads(label, flow, first, gen, dev, torch):
-    """Step-1 gradients of -log p(x) after dequantization, through the
-    kernel against the plain chain, on the same batch and noise."""
+def check_grads(label, flow, first, gen, dev, torch, tol=GRAD_RTOL,
+                reference=None):
+    """Step-1 loss and gradients of -log p(x) after dequantization
+    through the kernel against the plain chain (or, given ``reference``,
+    against ``reference``'s run through the kernel: a flow with the same
+    weights), on the same batch and noise: the loss within
+    ``LOGPX_RTOL`` (with ``reference``, within ``tol``) and the gradients
+    within ``tol``, each by relative norm. Each run's chain launch counts
+    are set to 0 just before it and read after its forward and its
+    backward. Returns the batch on the card and each run's (loss,
+    forward launches, launches by variant)."""
     from inverse_flow_tpu_torch.layers import Flow
     from inverse_flow_tpu_torch.ops import fused_chain
 
-    body = Flow(flow.base_distribution, flow.layers[1:])
-    params = list(body.parameters())
     x = torch.as_tensor(first, device=dev)
     u = torch.rand(x.shape, generator=gen, device=dev)
 
-    def grads():
-        return torch.autograd.grad((-body(x + u)[1]).mean(), params)
+    def run(model, plain):
+        body = Flow(model.base_distribution, model.layers[1:])
+        params = [p for p in body.parameters() if p.requires_grad]
+        kernel = fused_chain.chain_phases       # holds the counts
+        fused_chain.reset_launches()
+        with plain_chain(fused_chain) if plain else contextlib.nullcontext():
+            loss = (-body(x + u)[1]).mean()
+            torch.cuda.synchronize()
+            fwd = kernel.launches
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+        return (loss.detach(), fwd, dict(kernel.launches_by_variant)), grads
 
-    g_kernel = grads()
-    with plain_chain(fused_chain):
-        g_plain = grads()
-    rel = max(0.0 if torch.equal(a, b) else
-              ((a - b).norm() / b.norm()).item()
-              for a, b in zip(g_kernel, g_plain))
-    print(f"{label}: step-1 gradients kernel vs plain chain, same batch and "
-          f"noise: max over {len(params)} tensors of |g - g_plain| / "
-          f"|g_plain| {rel:.3e} (tol {GRAD_RTOL:.0e})", flush=True)
-    if not rel <= GRAD_RTOL:
-        fail("gradients through the kernel disagree with the plain chain")
-    return x
+    (ours, g), (ref, g_ref) = run(flow, False), run(
+        flow if reference is None else reference, reference is None)
+    rel = abs((ours[0] - ref[0]) / ref[0]).item()
+    grel = max(0.0 if torch.equal(a, b) else
+               ((a - b).norm() / b.norm()).item() for a, b in zip(g, g_ref))
+    against = "plain chain" if reference is None else "reference"
+    loss_tol = LOGPX_RTOL if reference is None else tol
+    print(f"{label}: step-1 loss {ours[0].item():.4f} and gradients, kernel "
+          f"vs {against}, same batch of {x.shape[0]} and noise: loss rel "
+          f"err {rel:.3e} (tol {loss_tol:.0e}), max over {len(g)} tensors "
+          f"of |g - g_ref| / |g_ref| {grel:.3e} (tol {tol:.0e})", flush=True)
+    if not (torch.isfinite(ours[0]) and rel <= loss_tol and grel <= tol):
+        fail(f"{label}: the loss or the gradients through the kernel "
+             f"disagree with the {against}")
+    return x, ours, ref
 
 
 def time_steps(label, exp, x, reps, rounds, card, torch):
@@ -858,7 +777,7 @@ def time_steps(label, exp, x, reps, rounds, card, torch):
             exp.train_step(x)
 
     t = ab_ms({"kernel": step, "plain": step_plain}, reps=reps,
-              rounds=rounds, torch=torch)
+              rounds=rounds)
     print(f"{label}: {t['kernel']:.3f} ms/step of {exp.cfg.batch_size} "
           f"(plain chain {t['plain']:.3f} ms/step), CUDA events, median of "
           f"{rounds} turns of {reps} steps {card}", flush=True)
@@ -926,9 +845,9 @@ def phase_train(dev, card, torch):
         fail(f"a weight exceeds the clamp: {w_max}")
 
     flow.load_state_dict(init_state)
-    x = check_grads("train", flow, first, gen, dev, torch)
+    x = check_grads("train", flow, first, gen, dev, torch)[0]
     step = time_steps("train", exp, x, 2, 4, card, torch)
-    device_profile("train", "step", step, 2, card, torch)
+    device_profile("train", "step", step, 2, card)
     return launches - bwd, bwd
 
 
@@ -1037,7 +956,7 @@ def phase_imagenet32(dev, gen, card, torch):
 
     with torch.inference_mode():
         t = ab_ms({"kernel": eval_batch, "plain": eval_batch_plain},
-                  reps=1, rounds=2, torch=torch)
+                  reps=1, rounds=2)
     print(f"{label}: eval {t['kernel']:.3f} ms/batch of {BATCH} (plain "
           f"chain {t['plain']:.3f} ms/batch), median of 2 turns {card}",
           flush=True)
@@ -1067,9 +986,9 @@ def phase_imagenet32(dev, gen, card, torch):
              f"({144 * steps} backward), got {launches} ({bwd})")
 
     flow.load_state_dict(init_state)
-    x = check_grads(label, flow, first, gen, dev, torch)
+    x = check_grads(label, flow, first, gen, dev, torch)[0]
     step = time_steps(label, exp, x, 1, 2, card, torch)
-    device_profile(label, "step", step, 1, card, torch)
+    device_profile(label, "step", step, 1, card)
     return [dict(r, launches=n) for r, n in zip(rows,
                                                  (launches - bwd, bwd))], exp
 
@@ -1162,8 +1081,7 @@ def flagship_sample(flow, gen, card, torch):
     x = flow.sample(BATCH, gen)
     torch.cuda.synchronize()
     launches = fused_chain.chain_phases.launches
-    t = ab_ms({"sample": lambda: flow.sample(BATCH, gen)}, reps=1, rounds=4,
-              torch=torch)
+    t = ab_ms({"sample": lambda: flow.sample(BATCH, gen)}, reps=1, rounds=4)
     print(f"sample: flagship Flow.sample of {BATCH}: {launches} chain kernel "
           f"launches, values {x.min().item():.0f}..{x.max().item():.0f}; "
           f"{t['sample']:.3f} ms per {BATCH} images, median of 4 {card}",
@@ -1292,17 +1210,16 @@ def phase_ff(dev, gen, card, torch):
 
     t = ab_ms({"kernel": lambda: flow.sample(BATCH, gen),
                "plain": lambda: plain_sample(flow, BATCH, gen)},
-              reps=1, rounds=4, torch=torch)
+              reps=1, rounds=4)
     t1 = ab_ms({"kernel": lambda: flow.sample(1, gen),
                 "plain": lambda: plain_sample(flow, 1, gen)},
-               reps=1, rounds=4, torch=torch)
+               reps=1, rounds=4)
     print(f"{label}: Flow.sample {t['kernel']:.3f} ms per {BATCH} images "
           f"(plain chain {t['plain']:.3f}), {t1['kernel']:.3f} ms per image "
           f"at n=1 (plain chain {t1['plain']:.3f}), CUDA events, medians of "
           f"4 turns {card}", flush=True)
-    busy, calls = device_profile("sample_ff", "Flow.sample",
-                                 lambda: flow.sample(BATCH, gen), 2, card,
-                                 torch)
+    busy, calls, _ = device_profile("sample_ff", "Flow.sample",
+                                    lambda: flow.sample(BATCH, gen), 2, card)
     host_by_layer(flow, "inverse_with", lambda: flow.sample(BATCH, gen),
                   f"Flow.sample of {BATCH}", torch)
 
@@ -1329,8 +1246,7 @@ def phase_ff(dev, gen, card, torch):
     values, mean_loss, launches, bwd, _ = counted_epoch(exp, first, torch)
     w_max = max(p.detach().abs().max().item() for p in flow.parameters())
     xb = torch.as_tensor(first, device=dev)
-    ts = ab_ms({"step": lambda: exp.train_step(xb)}, reps=2, rounds=4,
-               torch=torch)
+    ts = ab_ms({"step": lambda: exp.train_step(xb)}, reps=2, rounds=4)
     print(f"{label}: {len(values)} steps of {BATCH} (Adam lr {cfg.lr}, "
           f"warmup {cfg.warmup_epochs} epochs, no scheduler, clamp "
           f"{cfg.weight_clamp}, recon weight {cfg.recon_loss_weight} and no "
@@ -1420,9 +1336,9 @@ def check_slr(gen, dev, card, torch):
             t = dict(ab_ms({"kernel": lambda: act.slr_inverse(y, SLR_ALPHA),
                             "fixed": lambda: act.slr_inverse(
                                 y, SLR_ALPHA, variant="fixed")},
-                           reps=50, rounds=4, torch=torch, ahead=True),
+                           reps=50, rounds=4, ahead=True),
                      **ab_ms({"plain": lambda: act.slr_inverse_reference(
-                         y, SLR_ALPHA)}, reps=3, rounds=2, torch=torch))
+                         y, SLR_ALPHA)}, reps=3, rounds=2))
         bound, bound_by = slr_bound(y.numel(), total)
         bound_100, _ = slr_bound(y.numel())
         print(f"slr: {shape}: kernel {1e3 * t['kernel']:.2f} us, first "
@@ -1518,9 +1434,9 @@ def sample_imagenet32(exp, gen, card, torch):
     (:func:`real_data_phase`). Then ``Flow.sample`` of 100 and of 1 and
     ``Experiment.sample`` (``n_samples`` 8 with ``log_timing``: 8 timed
     one-image samples after one warm-up, then 8 images) with the kernel
-    and with the plain loop (``Experiment.sample`` once each way: the plain
-    loop takes half a minute), and one profiled ``Flow.sample`` of 1 each
-    way. Returns the SLR kernel's launches per sample."""
+    and with the plain loop, ``Experiment.sample`` and one profiled
+    ``Flow.sample`` of 1 with the kernel only (the plain loop's took half
+    a minute). Returns the SLR kernel's launches per sample."""
     from inverse_flow_tpu_torch.layers import SmoothLeakyRelu
     from inverse_flow_tpu_torch.ops import activations as act
     from inverse_flow_tpu_torch.ops import fused_chain
@@ -1572,42 +1488,33 @@ def sample_imagenet32(exp, gen, card, torch):
 
     t = {n: ab_ms({"kernel": lambda n=n: flow.sample(n, gen),
                    "plain": lambda n=n: plain_sample(n)},
-                  reps=1, rounds=2, torch=torch) for n in (BATCH, 1)}
+                  reps=1, rounds=2) for n in (BATCH, 1)}
     print(f"{label}: Flow.sample {t[BATCH]['kernel']:.3f} ms per {BATCH} "
           f"images (plain loop {t[BATCH]['plain']:.3f}), {t[1]['kernel']:.3f} "
           f"ms per image at n=1 (plain loop {t[1]['plain']:.3f}: "
           f"{t[1]['plain'] / t[1]['kernel']:.1f}x), CUDA events, medians of "
           f"2 turns {card}", flush=True)
     device_profile(label, "Flow.sample of 1", lambda: flow.sample(1, gen),
-                   1, card, torch)
-    device_profile(f"{label}_plain", "Flow.sample of 1",
-                   lambda: plain_sample(1), 1, card, torch)
+                   1, card)
 
     exp.cfg = exp.cfg.replace(n_samples=8, log_timing=True,
                               save_images=False)
-    runs = {"kernel": [], "plain": []}
-    for i, mode in enumerate(("kernel", "plain")):
-        exp.sample_time = type(exp.sample_time)()
-        act.reset_slr_launches()
-        with plain_slr() if mode == "plain" else contextlib.nullcontext():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            samples = exp.sample(i + 1)
-            torch.cuda.synchronize()
-        runs[mode].append((exp.sample_time.mean, exp.sample_time.std,
-                           1e3 * (time.perf_counter() - t0),
-                           act.slr_inverse.launches))
-        if samples.shape != (8, 3, 32, 32):
-            fail(f"Experiment.sample ({mode}) gave {tuple(samples.shape)}")
-    for mode, ((mean, std, whole, launches),) in runs.items():
-        print(f"{label}: Experiment.sample ({mode}): Sample Time Mean "
-              f"{mean:.3f} ms, Std {std:.3f} ms (the middle 6 of 8 "
-              f"one-image samples); the whole call {whole:.1f} ms; "
-              f"SLR-kernel launches {launches} {card}", flush=True)
-    if runs["kernel"][0][3] != 144 * 10 or runs["plain"][0][3] != 0:
-        fail(f"Experiment.sample: {runs['kernel'][0][3]} SLR-kernel "
-             f"launches (expected 1440), {runs['plain'][0][3]} on the "
-             f"plain loop")
+    exp.sample_time = type(exp.sample_time)()
+    act.reset_slr_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = exp.sample(1)
+    torch.cuda.synchronize()
+    whole = 1e3 * (time.perf_counter() - t0)
+    launches = act.slr_inverse.launches
+    print(f"{label}: Experiment.sample: Sample Time Mean "
+          f"{exp.sample_time.mean:.3f} ms, Std {exp.sample_time.std:.3f} ms "
+          f"(the middle 6 of 8 one-image samples); the whole call "
+          f"{whole:.1f} ms; SLR-kernel launches {launches} {card}",
+          flush=True)
+    if samples.shape != (8, 3, 32, 32) or launches != 144 * 10:
+        fail(f"Experiment.sample gave {tuple(samples.shape)}, {launches} "
+             f"SLR-kernel launches (expected 1440)")
     return slr_launches
 
 
@@ -1716,7 +1623,7 @@ def real_data_phase(name, epochs, dev, card, torch):
         fail(f"{name}: the trained model's samples are not finite or "
              f"disagree with the plain loop")
     xb = exp._prep_batch(next(iter(exp.train_loader)))
-    device_profile(name, "step", lambda: exp.train_step(xb), 2, card, torch)
+    device_profile(name, "step", lambda: exp.train_step(xb), 2, card)
     if not all(map(math.isfinite, bpds + [final["test_bpd"]])):
         fail(f"{name}: a BPD is not finite")
     if not bpds[-1] <= bpds[0] - 1.0:
@@ -1917,7 +1824,7 @@ def phase_tall(dev, card, torch):
             step()
 
     t = ab_ms({"kernel": step, "plain": plain, "streaming": streaming},
-              reps=3, rounds=4, torch=torch)
+              reps=3, rounds=4)
     print(f"{label}: {t['kernel']:.3f} ms per loss and backward of {b} on "
           f"the wide cluster kernel (plain chain {t['plain']:.3f}, streaming "
           f"kernel forced {t['streaming']:.3f}), CUDA events, median of 4 "
@@ -2099,7 +2006,7 @@ def phase_snf(dev, gen, card, torch):
 
     logpx = exp.eval_epoch(exp.val_loader)
     corr_ms = ab_ms({"corr": lambda: flow.exact_ldj_correction(
-        exp.data_shape)}, reps=1, rounds=2, torch=torch)["corr"]
+        exp.data_shape)}, reps=1, rounds=2)["corr"]
     with torch.inference_mode():
         corr = flow.exact_ldj_correction(exp.data_shape).item()
     print(f"{label}: eval over 2 batches of {BATCH}: log p(x) {logpx:.4f}, "
@@ -2139,8 +2046,8 @@ def phase_snf(dev, gen, card, torch):
     def step():
         exp.train_step(x)
 
-    t = ab_ms({"step": step}, reps=2, rounds=3, torch=torch)
-    busy, calls = device_profile("train_snf", "step", step, 1, card, torch)
+    t = ab_ms({"step": step}, reps=2, rounds=3)
+    busy, calls, _ = device_profile("train_snf", "step", step, 1, card)
     print(f"{label}: train {t['step']:.3f} ms/step of {BATCH} (CUDA events, "
           f"median of 3 turns of 2); device busy {busy:.3f} ms and {calls:.0f}"
           f" kernel launch calls per step {card}", flush=True)
@@ -2788,7 +2695,7 @@ def phase_timescaling(dev, card, torch):
         flow, x = timescale_flow(name, shape, dev, torch)
         loss_and_logp(flow, x, torch)
         device_profile(f"timescale_{name}_{shape[1]}", "step",
-                       lambda: loss_and_logp(flow, x, torch), 3, card, torch)
+                       lambda: loss_and_logp(flow, x, torch), 3, card)
 
     # ---- memory_speed at its full configuration
     with contextlib.chdir(out), solve_counts(torch) as n:
@@ -2885,9 +2792,9 @@ def check_smooth_tanh(gen, dev, card, torch):
                 never = int((first == act.NEWTON_ITERS).sum())
                 t = dict(ab_ms({v: lambda v=v: act.smooth_tanh_inverse(
                     y, 1.0, beta, variant=v) for v in act.TANH_VARIANTS},
-                    reps=50, rounds=4, torch=torch, ahead=True), **ab_ms(
+                    reps=50, rounds=4, ahead=True), **ab_ms(
                     {"plain": lambda: act.smooth_tanh_inverse_reference(
-                        y, 1.0, beta)}, reps=3, rounds=2, torch=torch))
+                        y, 1.0, beta)}, reps=3, rounds=2))
             bound, bound_by = tanh_bound(y.numel(), int(lane.sum()))
             bound_100, _ = tanh_bound(y.numel(), 100 * y.numel())
             kernel, design = t["lane_exit"], t["step_exit"]
@@ -3050,9 +2957,9 @@ def check_bspline_kernel(label, y, coeffs, layout, card, torch):
         t = dict(ab_ms({"kernel": lambda: ob.bspline_inverse(
             y, coeffs, layout), "first": lambda: ob.bspline_inverse(
             y, coeffs, layout, variant="first")}, reps=50, rounds=4,
-            torch=torch, ahead=4),
+            ahead=4),
             **ab_ms({"plain": lambda: ob.bspline_inverse_reference(
-                y, coeffs, layout)}, reps=3, rounds=2, torch=torch))
+                y, coeffs, layout)}, reps=3, rounds=2))
     k = last.shape[-1] - 3
     steps_mean, steps_max = steps.float().mean().item(), int(steps.max())
     bound, bound_by = bspline_bound(y.numel(), k, layout != "shared")
@@ -3182,7 +3089,7 @@ def phase_bspline(gen, dev, card, torch):
                     t = ab_ms({"forward": lambda: layer(x),
                                "inverse": lambda: layer.inverse(z),
                                "plain": plain_inverse},
-                              reps=3, rounds=2, torch=torch)
+                              reps=3, rounds=2)
                     calls = launch_calls(lambda: layer.inverse(z), torch)
                     plain_calls = launch_calls(plain_inverse, torch)
                 print(f"bspline: {name} {(b,) + chw}: forward "
@@ -3306,10 +3213,10 @@ def phase_exponential(dev, gen, card, torch):
     def step():
         exp.train_step(x + u)
 
-    t = ab_ms({"step": step}, reps=3, rounds=2, torch=torch)
+    t = ab_ms({"step": step}, reps=3, rounds=2)
     print(f"{label}: train {t['step']:.3f} ms/step of {BATCH}, CUDA events, "
           f"median of 2 turns of 3 steps {card}", flush=True)
-    device_profile(label, "step", step, 2, card, torch)
+    device_profile(label, "step", step, 2, card)
     phase_cli(card, "exponential_cnn_mnist")
 
 
@@ -3410,9 +3317,9 @@ def phase_fastflow(dev, gen, card, torch):
              f"{launches - bwd} + {bwd} in {steps} steps")
 
     flow.load_state_dict(init_state)
-    x = check_grads(label, flow, first, gen, dev, torch)
+    x = check_grads(label, flow, first, gen, dev, torch)[0]
     step = time_steps(label, exp, x, 1, 2, card, torch)
-    device_profile(label, "step", step, 1, card, torch)
+    device_profile(label, "step", step, 1, card)
 
     fused_chain.reset_launches()
     with torch.inference_mode():
@@ -3558,14 +3465,13 @@ def step_ms(label, exp, first, card, torch, profiled=True):
     turns after a warm-up step, and samples/s; then, if ``profiled``, one
     step under the profiler (device busy, idle share, launch calls)."""
     x = torch.as_tensor(first, device=exp.device)
-    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1, rounds=2,
-              torch=torch)["step"]
+    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1,
+              rounds=2)["step"]
     print(f"{label}: {t:.3f} ms/step of {exp.cfg.batch_size}, "
           f"{1e3 * exp.cfg.batch_size / t:.1f} samples/s, median of 2 {card}",
           flush=True)
     if profiled:
-        device_profile(label, "step", lambda: exp.train_step(x), 1, card,
-                       torch)
+        device_profile(label, "step", lambda: exp.train_step(x), 1, card)
 
 
 def phase_if_glow_cifar(dev, gen, card, torch, _build):
@@ -3615,9 +3521,9 @@ def phase_if_glow_cifar(dev, gen, card, torch, _build):
             or not torch.isfinite(s).all():
         fail(f"{label}: samples not finite or {sample_launches} launches")
     exp.flow.load_state_dict(init_state)
-    x = check_grads(label, exp.flow, first, gen, dev, torch)
+    x = check_grads(label, exp.flow, first, gen, dev, torch)[0]
     step = time_steps(label, exp, x, 1, 2, card, torch)
-    device_profile(label, "step", step, 1, card, torch)
+    device_profile(label, "step", step, 1, card)
     return [dict(rows[0], launches=launches - bwd),
             dict(rows[1], launches=bwd)]
 
@@ -3730,9 +3636,9 @@ def bf16_run(name, steps, dev, card, torch):
     return (launches - bwd, bwd), exp, images[:b]
 
 
-def bf16_value_check(exp, first, card, torch):
-    """``exp``'s model (imagenet32 with bf16 coupling nets, after its data
-    init and train steps) against the same model with float32 coupling
+def bf16_value_check(flow, name, first, trained, card, torch):
+    """``flow`` (config ``name``'s model with bf16 coupling nets, in the
+    state ``trained`` says) against the same model with float32 coupling
     nets on the same weights: log p(x) of the batch ``first`` and the
     gradients of its mean, through the kernel, on the same dequantization
     noise; then again with every coupling's ``w3``, ``b3`` and ``logs3``
@@ -3742,15 +3648,14 @@ def bf16_value_check(exp, first, card, torch):
     from inverse_flow_tpu_torch.experiments import bench_configs
     from inverse_flow_tpu_torch.layers import Flow
 
-    dev = exp.device
+    dev = next(flow.parameters()).device
     gen = torch.Generator(dev).manual_seed(1)
-    flows = [bench_configs.build("imagenet32", device=dev,
-                                 generator=gen)[0], exp.flow]
-    flows[0].load_state_dict(exp.flow.state_dict())
+    flows = [bench_configs.build(name, device=dev, generator=gen)[0], flow]
+    flows[0].load_state_dict(flow.state_dict())
     x = torch.as_tensor(first, device=dev)
     u = torch.rand(x.shape, generator=gen, device=dev)
     dim = x[0].numel()
-    for what, noise in ((f"after data init and {exp.step} steps", 0.0),
+    for what, noise in ((trained, 0.0),
                         (f"w3, b3, logs3 then moved by {BF16_PERTURB} noise",
                          BF16_PERTURB)):
         if noise:
@@ -3761,8 +3666,8 @@ def bf16_value_check(exp, first, card, torch):
                                                    device=dev))
             flows[1].load_state_dict(flows[0].state_dict())
         out = []
-        for flow in flows:
-            body = Flow(flow.base_distribution, flow.layers[1:])
+        for f in flows:
+            body = Flow(f.base_distribution, f.layers[1:])
             lp = body(x + u)[1]
             g = torch.autograd.grad((-lp).mean(), list(body.parameters()))
             out.append((lp.detach(), torch.cat([t.reshape(-1) for t in g])))
@@ -3770,15 +3675,15 @@ def bf16_value_check(exp, first, card, torch):
         dbpd = ((lp32 - lpbf).abs() / (math.log(2.0) * dim)).max().item()
         bpd = (-lp32.mean() / (math.log(2.0) * dim)).item()
         grel = ((gbf - g32).norm() / g32.norm()).item()
-        print(f"bf16: value check, imagenet32 (B={x.shape[0]}) with float32 "
+        print(f"bf16: value check, {name} (B={x.shape[0]}) with float32 "
               f"vs bf16 coupling nets on the same weights ({what}) and "
               f"noise: bpd {bpd:.4f}; max |dbpd| over the examples "
               f"{dbpd:.3e} (bound {BF16_BPD_TOL}); gradient |g_bf16 - g| / "
               f"|g| {grel:.3e} (bound {BF16_GRAD_RTOL}) {card}", flush=True)
         if not (math.isfinite(bpd) and dbpd <= BF16_BPD_TOL
                 and grel <= BF16_GRAD_RTOL):
-            fail("bf16 couplings move the imagenet32 model's bpd or "
-                 "gradients past their bounds")
+            fail(f"bf16 couplings move the {name} model's bpd or "
+                 f"gradients past their bounds")
 
 
 def phase_cifar_bf16(dev, gen, card, torch, _build):
@@ -3805,7 +3710,8 @@ def phase_cifar_bf16(dev, gen, card, torch, _build):
     phase_cifar_baselines(dev, torch, card)
     part("selfnorm_glow_cifar and conv1x1_glow_cifar")
     _, exp, first = bf16_run("imagenet32_bf16_couplings", 3, dev, card, torch)
-    bf16_value_check(exp, first, card, torch)
+    bf16_value_check(exp.flow, "imagenet32", first,
+                     f"after data init and {exp.step} steps", card, torch)
     del exp
     part("imagenet32_bf16_couplings and the value check")
     entries = {"chain_phases:cifar": cifar_rows[0],
@@ -3965,14 +3871,14 @@ def dp_one_rank(rank, size, card):
     main_launches = (launches - bwd, bwd)
 
     exp.flow.load_state_dict(init_state)
-    x = check_grads(label, exp.flow, first, exp.generator, dev, torch)
-    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1, rounds=2,
-              torch=torch)["step"]
+    x = check_grads(label, exp.flow, first, exp.generator, dev, torch)[0]
+    t = ab_ms({"step": lambda: exp.train_step(x)}, reps=1,
+              rounds=2)["step"]
     print(f"{label}: {t:.3f} ms/step of {DP_BATCH} (one rank, NCCL "
           f"all-reduce of {n_params} gradients a step), median of 2 {card}",
           flush=True)
-    busy, calls = device_profile("dp_w1", "step",
-                                 lambda: exp.train_step(x), 1, card, torch)
+    busy, calls, _ = device_profile("dp_w1", "step",
+                                    lambda: exp.train_step(x), 1, card)
     del exp, x
     torch.cuda.empty_cache()
 
@@ -4619,7 +4525,7 @@ def phase_bspline_glow(dev, card, torch):
     y, y_plain = body.sample(BATCH, noise=noise), plain_sample()
     rel = ((y - y_plain).norm() / y_plain.norm()).item()
     t = ab_ms({"kernel": lambda: body.sample(BATCH, noise=noise),
-               "plain": plain_sample}, reps=1, rounds=4, torch=torch)
+               "plain": plain_sample}, reps=1, rounds=4)
     calls = launch_calls(lambda: body.sample(BATCH, noise=noise), torch)
     plain_calls = launch_calls(plain_sample, torch)
     print(f"{label}: Flow.sample of {BATCH} on the same draws, kernel vs "
@@ -4663,6 +4569,189 @@ def phase_bspline_glow(dev, card, torch):
                steps_max=max(r["steps_max"] for r in rows),
                max_abs_err=max(r["max_abs_err"] for r in rows))
     return row, bspline
+
+
+# phase 19: bench.py's configurations that no other phase builds, and the
+# chain launches a step that each must make (a unit of four orders per
+# flow step of the fused units, one solve per step elsewhere; each forward
+# and backward), all on the cluster kernel
+BENCH_NEW = {"glow_mnist_fused_units": 64, "glow_mnist_bf16_couplings": 64,
+             "imagenet32_exact": 288, "timescale_s64": 4,
+             "timescale_s128": 4}
+# loss and gradients of imagenet32_exact against imagenet32 on the same
+# weights: the same solves (exact, fused and auto outside the Jacobi
+# window each run one fused_chain_solve a unit), so under deterministic
+# algorithms (cuDNN's backward otherwise sums in no fixed order) they are
+# bitwise equal
+BENCH_EXACT_RTOL = 0.0
+# kernel against plain chain through bf16 coupling nets: the two chains
+# part by float32 round-off, which a net input near a bf16 rounding
+# boundary turns into a bf16 unit (2^-8). scripts/bench_parity_floor.py
+# read 2.373e-04 to 4.754e-04 over four noise draws on an H100 80GB HBM3,
+# the same under deterministic algorithms, against a run-to-run floor of
+# 1.5e-07 to 1.7e-07 (0 under deterministic algorithms); about twice the
+# largest reading
+BF16_GRAD_PARITY = 1e-3
+BENCH_ROUNDS, BENCH_DRAWS = 2, 3
+BENCH_TIMEOUT = 900
+
+
+def bench_model(name, dev, torch):
+    """Config ``name`` of ``bench.py`` at full width and depth through
+    ``bench_configs.build``, weights from seed 0, with its data init on
+    its batch ``smooth_images(batch, size)``, as the bench builds it;
+    returns (flow, the batch, the generator)."""
+    from inverse_flow_tpu_torch.data import synthetic
+    from inverse_flow_tpu_torch.experiments import bench_configs
+
+    gen = torch.Generator(dev).manual_seed(0)
+    flow, shape, b = bench_configs.build(name, dev, gen)
+    x = torch.as_tensor(synthetic.smooth_images(b, shape), device=dev)
+    flow.data_init(x, gen)
+    return flow, x, gen
+
+
+def step_vs_plain(name, flow, x, gen, dev, card, torch, tol=GRAD_RTOL):
+    """:func:`check_grads` on config ``name`` of ``BENCH_NEW``, the
+    gradients within ``tol``; the kernel run's launches must be
+    ``BENCH_NEW[name]``, all ``cluster``. Returns (forward, backward)
+    launches."""
+    _, (_, fwd, by), _ = check_grads(f"bench: {name}", flow, x, gen, dev,
+                                     torch, tol)
+    n = sum(by.values())
+    print(f"bench: {name}: chain launches {fwd} forward + {n - fwd} "
+          f"backward, by variant {by} {card}", flush=True)
+    if n != BENCH_NEW[name] or by["cluster"] != n:
+        fail(f"{name}: expected {BENCH_NEW[name]} chain launches a step, "
+             f"all cluster, got {by}")
+    return fwd, n - fwd
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's and the scatters' backward in a fixed summation order."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def exact_vs_unit(dev, card, torch):
+    """``imagenet32_exact`` against ``imagenet32`` with the exact model's
+    weights (:func:`check_grads` with a reference, under deterministic
+    algorithms): loss and gradients on the same batch and noise within
+    ``BENCH_EXACT_RTOL``, 288 ``cluster`` launches a step each."""
+    from inverse_flow_tpu_torch.experiments import bench_configs
+
+    flow, x, gen = bench_model("imagenet32_exact", dev, torch)
+    unit = bench_configs.build("imagenet32", dev,
+                               torch.Generator(dev).manual_seed(1))[0]
+    unit.load_state_dict(flow.state_dict())
+    with deterministic(torch):
+        _, ours, ref = check_grads("bench: imagenet32_exact vs imagenet32",
+                                   flow, x, gen, dev, torch,
+                                   BENCH_EXACT_RTOL, reference=unit)
+    by, by_u = ours[2], ref[2]
+    print(f"bench: imagenet32_exact vs imagenet32: chain launches by variant "
+          f"{by} and {by_u} {card}", flush=True)
+    want = BENCH_NEW["imagenet32_exact"]
+    if by != by_u or by["cluster"] != want or sum(by.values()) != want:
+        fail(f"imagenet32_exact: expected {want} cluster launches a step, "
+             f"got {by} (imagenet32 {by_u})")
+
+
+def phase_bench(dev, gen, card, torch, _build):
+    """Phase 19: ``python -m inverse_flow_tpu_torch.bench`` and the five
+    configurations of ``bench.py`` that no other phase builds, each at
+    full width and depth through ``bench_configs.build`` with the bench's
+    data init. ``glow_mnist_fused_units``: the N=4 unit at the flagship's
+    shapes (row E0), forward and backward, against its plain version and
+    timed (:func:`rows_at`), and a step against the plain chain
+    (:func:`step_vs_plain`: 64 launches); ``glow_mnist_bf16_couplings``: a
+    step against the plain chain (``BF16_GRAD_PARITY``) and against the
+    same step through the kernel (the run-to-run floor), and the bf16
+    value check against float32 nets; ``imagenet32_exact`` against
+    ``imagenet32``
+    (:func:`exact_vs_unit`); ``timescale_s64`` and ``_s128``: a step
+    against the plain chain (4 launches). Then ``bench_config`` on each
+    with 2 rounds of 1 step (its row: no error, every chain launch on the
+    cluster kernel, the step's chain calls those of the check), and the
+    bench with no argument in a subprocess: its last line the flagship's,
+    ms > 0 on this card. Returns the forward and backward summary entries
+    of the fused units' launch."""
+    from inverse_flow_tpu_torch import bench
+
+    t0 = lap = time.perf_counter()
+
+    def part(what):
+        nonlocal lap
+        now = time.perf_counter()
+        print(f"bench: {what} in {now - lap:.1f} s", flush=True)
+        lap = now
+        torch.cuda.empty_cache()
+
+    rows = rows_at("fused_units", FLAGSHIP_SHAPES, UNIT, BATCH, 50, 4, gen,
+                   dev, card, torch, _build)
+    flow, x, g = bench_model("glow_mnist_fused_units", dev, torch)
+    launches = step_vs_plain("glow_mnist_fused_units", flow, x, g, dev,
+                             card, torch)
+    del flow
+    part("glow_mnist_fused_units")
+    name = "glow_mnist_bf16_couplings"
+    flow, x, g = bench_model(name, dev, torch)
+    step_vs_plain(name, flow, x, g, dev, card, torch, BF16_GRAD_PARITY)
+    # the run-to-run floor beside it: the same step through the kernel
+    # twice
+    check_grads(f"bench: {name} run to run", flow, x, g, dev, torch,
+                BF16_GRAD_PARITY, reference=flow)
+    bf16_value_check(flow, "glow_mnist", x, "after data init", card, torch)
+    del flow
+    part(name)
+    exact_vs_unit(dev, card, torch)
+    part("imagenet32_exact")
+    for name in ("timescale_s64", "timescale_s128"):
+        flow, x, g = bench_model(name, dev, torch)
+        step_vs_plain(name, flow, x, g, dev, card, torch)
+        del flow
+    part("timescale_s64 and timescale_s128")
+
+    for name in BENCH_NEW:
+        row = bench.bench_config(name, dev, rounds=BENCH_ROUNDS, steps=1,
+                                 draws=BENCH_DRAWS)
+        by = row.get("chain_launches_by_variant")
+        print(f"bench: {name}: {json.dumps(row)}", flush=True)
+        if row.get("error") or not row["train_step_ms"] > 0 \
+                or by["cluster"] != BENCH_NEW[name] \
+                or sum(by.values()) != BENCH_NEW[name] \
+                or row["chain_calls_per_step"] != BENCH_NEW[name] \
+                or not row["train_step_gflops"] > row["chain_gflops"] > 0:
+            fail(f"bench_config({name!r}) gave {row}")
+    part("bench_config on the five")
+
+    run = subprocess.run([sys.executable, "-m",
+                          "inverse_flow_tpu_torch.bench"], cwd=HERE,
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    last = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    print(f"bench: python -m inverse_flow_tpu_torch.bench: exit "
+          f"{run.returncode}, last line {last}", flush=True)
+    try:
+        line = json.loads(last)
+    except json.JSONDecodeError:
+        line = {}
+    kind = torch.cuda.get_device_name(0)
+    if run.returncode != 0 or line.get("metric") != "glow_mnist_train_step" \
+            or line.get("unit") != "ms/batch" \
+            or not (line.get("value") or 0) > 0 \
+            or line.get("extra", {}).get("device") != kind:
+        fail(f"the bench's flagship line is not right: {run.stderr[-2000:]}")
+    part("the bench's flagship line")
+    print(f"bench: phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [dict(rows[0], launches=launches[0]),
+            dict(rows[1], launches=launches[1])]
 
 
 def print_build(dev, _build, fused_chain):
@@ -4878,7 +4967,7 @@ def main():
 
     with torch.inference_mode():
         t = ab_ms({"kernel": eval_batch, "plain": eval_batch_plain},
-                  reps=3, rounds=8, torch=torch)
+                  reps=3, rounds=8)
     print(f"slice: eval {t['kernel']:.3f} ms/batch of {BATCH} (plain chain "
           f"{t['plain']:.3f} ms/batch) {card}", flush=True)
     phase_done(5)
@@ -4943,7 +5032,11 @@ def main():
     mesh_rows = phase_mesh(dev, gen, card, torch, _build)
     phase_done(18)
 
-    print(f"smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 19. the bench entry point, bench.py's five new configurations --
+    bench_rows = phase_bench(dev, gen, card, torch, _build)
+    phase_done(19)
+
+    print(f"smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -5024,7 +5117,12 @@ def main():
         # launches: rank 0's 3 steps on the 2 x 2 mesh (in its spawned
         # process, the counts set to 0 just before)
         entry("chain_phases:mesh_b50", **mesh_rows[0]),
-        entry("chain_phases:mesh_b50_backward", **mesh_rows[1])]}),
+        entry("chain_phases:mesh_b50_backward", **mesh_rows[1]),
+        # phase 19: glow_mnist_fused_units' N=4 launch at the flagship's
+        # shapes (row E0), launches: its step through the kernel (the
+        # counts set to 0 just before)
+        entry("chain_phases:fused_units", **bench_rows[0]),
+        entry("chain_phases:fused_units_backward", **bench_rows[1])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -35,9 +35,10 @@ def _glow_imagenet32(batch=100, **kw):
 
 
 def _timescale(s, **kw):
-    return build_cnn_flow((1, s, s), step_kind="inv_conv_no_pad",
-                          num_blocks=1, block_size=2, activation="None",
-                          kernel=(2, 2), **kw), (1, s, s), 128
+    args = dict(step_kind="inv_conv_no_pad", num_blocks=1, block_size=2,
+                activation="None", kernel=(2, 2))
+    args.update(kw)
+    return build_cnn_flow((1, s, s), **args), (1, s, s), 128
 
 
 CONFIGS = {
@@ -60,11 +61,14 @@ CONFIGS = {
 }
 
 
-def build(name, device="cuda", generator=None):
+def build(name, device="cuda", generator=None, **overrides):
     """``(flow, data_shape, batch)`` of ``bench.py``'s config ``name``, the
     parameters drawn from ``generator`` on ``device`` (the CUDA card
-    unless the caller names another)."""
+    unless the caller names another). ``overrides`` go to the build
+    function over the config's own arguments (``num_blocks``,
+    ``block_size``, ``coupling_width``: a smaller model of the same
+    family)."""
     if name not in CONFIGS:
         raise KeyError(f"unknown bench config '{name}'; available: "
                        + ", ".join(CONFIGS))
-    return CONFIGS[name](device=device, generator=generator)
+    return CONFIGS[name](device=device, generator=generator, **overrides)

@@ -321,15 +321,57 @@ def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0, variant=None):
     if err != 0:
         raise RuntimeError(f"chain_phases: {variant} kernel launch failed "
                            f"with CUDA error {err}")
-    chain_phases.launches += 1
-    chain_phases.launches_by_variant[variant] += 1
+    # on the function itself, not through the module's name, which a
+    # caller may have bound to a wrapper around it
+    _CHAIN_PHASES.launches += 1
+    _CHAIN_PHASES.launches_by_variant[variant] += 1
     return y
+
+
+_CHAIN_PHASES = chain_phases
+
+
+def chain_work(args):
+    """(multiply-adds per batch row, bytes) of one :func:`chain_phases`
+    launch on ``args``, counted from that launch's operands.
+
+    Multiply-adds: at every block step, for each live output column, the
+    nonzero entries of its row of T but a diagonal 1 (T is a permuted
+    triangle: a unit diagonal is a copy, an Emerging kernel's is a
+    product, and the upper half is zero), and, after a scan's first
+    block, of its row of G; each only over the live columns it multiplies
+    (a padded tail column is always zero). Bytes: the live columns of x
+    read and of every phase output written once, and those entries of T
+    and the nonzero entries of G read once."""
+    xb, t_all, g_all, dirs, kcw, pad_cw = args
+    nb, _, rcw = xb.shape
+    dev = t_all.device
+    t_nz = (t_all != 0) & ~(torch.eye(rcw, dtype=torch.bool, device=dev)
+                            & (t_all == 1))
+    g_nz = g_all != 0
+    full = torch.ones(rcw, dtype=torch.bool, device=dev)
+    tail = torch.arange(rcw, device=dev) < rcw - pad_cw
+    fma = 0
+    for o, flip_h in enumerate(dirs):
+        prev = None
+        for i in range(nb):
+            m = nb - 1 - i if flip_h else i
+            live = tail if m == nb - 1 else full
+            fma += int(t_nz[o][live][:, live].sum())
+            if prev is not None:
+                carried = prev[:kcw] if flip_h else prev[rcw - kcw:]
+                fma += int(g_nz[o][live][:, carried].sum())
+            prev = live
+    live_cols = nb * rcw - pad_cw
+    n_bytes = 4 * ((1 + len(dirs)) * xb.shape[1] * live_cols
+                   + int(t_nz.sum()) + int(g_nz.sum()))
+    return fma, n_bytes
 
 
 def reset_launches():
     """Sets :func:`chain_phases`' launch counts to 0."""
-    chain_phases.launches = 0
-    chain_phases.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    _CHAIN_PHASES.launches = 0
+    _CHAIN_PHASES.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 reset_launches()

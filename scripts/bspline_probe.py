@@ -136,7 +136,7 @@ def ablation(torch):
                 torch.cuda.synchronize()
                 errs[name] = (x - x_ref).abs().max().item()
                 calls[name] = call
-            t = cs.ab_ms(calls, reps=50, rounds=6, torch=torch, ahead=True)
+            t = cs.ab_ms(calls, reps=50, rounds=6, ahead=True)
             print(f"ablation {layout} {shape} K={k}: " + ", ".join(
                 f"{n} {1e3 * t[n]:.2f} us (err {errs[n]:.1e})"
                 for n in calls) + f" {tag}", flush=True)
@@ -174,7 +174,7 @@ def host(torch):
                 try:
                     for k in (1, 4):
                         torch.cuda._sleep = lambda n, k=k: sleep(n * k)
-                        kernel[k] = sorted(cs.time_ms(fn, 50, torch, True)
+                        kernel[k] = sorted(cs.time_ms(fn, 50, True)
                                            for _ in range(4))
                 finally:
                     torch.cuda._sleep = sleep

@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
     assert {"inverse_flow_tpu_torch.layers.padded_conv",
             "inverse_flow_tpu_torch.utils.imaging"} <= set(mods)
     assert {f"inverse_flow_tpu_torch.{m}" for m in (
-        "cli", "data.digits", "data.patches", "experiments.real_data",
+        "bench", "cli", "data.digits", "data.patches",
+        "experiments.real_data",
         "experiments.registry", "ops.activations", "train.checkpoint",
         "utils.profiling", "parallel", "parallel.data_parallel",
         "parallel.mesh", "native",

@@ -479,3 +479,25 @@ def test_exponential_cnn_step_matches_the_cpu(cuda_device, tmp_path):
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
     for k, v in states[0].items():
         assert (states[1][k] - v).norm() <= 1e-4 * max(v.norm(), 1e-6), k
+
+
+@pytest.mark.cuda
+def test_a_wrapped_chain_still_counts_on_the_kernel(cuda_device):
+    """With a wrapper bound to ``fused_chain.chain_phases`` (the bench's
+    FLOP count, ``bench.step_flops``), each launch still counts on the
+    kernel's own counts: a solve forward and backward, 2 launches, and
+    the count's chain FLOPs those of ``chain_work``."""
+    from inverse_flow_tpu_torch import bench
+
+    xs, ws = _inputs((4, 14, 14), 1, b=4, seed=3)
+    x = torch.from_numpy(xs).to(cuda_device).requires_grad_()
+    w = apply_mask(torch.from_numpy(ws[0]).to(cuda_device)).detach()
+    w.requires_grad_()
+    args = tfc.chain_inputs(x.detach(), (w.detach(),), ("TL",))
+    before = _counts()
+    _, chain_flops, n = bench.step_flops(
+        lambda: tfc.fused_chain_solve(x, [w], ("TL",)).sum().backward())
+    torch.cuda.synchronize()
+    assert n == 2
+    assert chain_flops >= 2 * tfc.chain_work(args)[0] * 4
+    _launched("cluster", 2, before)

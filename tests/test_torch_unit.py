@@ -261,6 +261,35 @@ def test_chain_bound_counts_the_products_the_data_needs(chw, orders):
     assert fma < len(dirs) * (nb * rcw ** 2 + (nb - 1) * rcw * kcw) * 0.75
 
 
+@pytest.mark.parametrize("chw,orders", [((8, 7, 7), ("BR",)),
+                                        ((12, 4, 4), ORDERS)],
+                         ids=["padded-BR", "unit"])
+def test_chain_work_bytes_count_the_live_entries(chw, orders):
+    """``chain_work``'s bytes are those a run of the plain version reads
+    and writes that carry data: x's entries and every phase output's
+    (random inputs, so nonzero but in the padded tail columns, which no
+    product reads or writes), T's entries but a unit diagonal and G's
+    nonzero entries, 4 bytes each. At (8, 7, 7) the padded tail is 280 of
+    336 x 2 columns, which a count over the whole blocks would charge."""
+    x, ws = _inputs(chw, len(orders), b=2, seed=9)
+    args = tfc.chain_inputs(
+        torch.from_numpy(x),
+        [tic.apply_mask(torch.from_numpy(w)) for w in ws], orders)
+    xb, t_all, g_all, dirs, kcw, pad_cw = args
+    rcw = xb.shape[2]
+    phases = tfc.chain_phases_reference(*args)
+    t_live = (t_all != 0) & ~(torch.eye(rcw, dtype=torch.bool)
+                              & (t_all == 1))
+    live = int((xb != 0).sum() + (phases != 0).sum() + t_live.sum()
+               + (g_all != 0).sum())
+    assert tfc.chain_work(args)[1] == 4 * live
+    if chw == (8, 7, 7):
+        # x and the one phase output, 2 rows each, less their tails
+        assert pad_cw == 280 and (xb[-1, :, rcw - pad_cw:] == 0).all()
+        whole = 4 * (live + (1 + len(dirs)) * xb.shape[1] * pad_cw)
+        assert whole - tfc.chain_work(args)[1] == 4 * 2 * 2 * 280
+
+
 def test_build_glow_step_kinds_and_refusals():
     """The unit step kinds build the JAX parameter names; ``convexp`` and
     ``SplineNat`` build; ``coupling_dtype`` reaches every coupling net
