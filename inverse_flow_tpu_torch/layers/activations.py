@@ -30,6 +30,8 @@ class FlowActivationLayer(FlowLayer):
     SmoothTanh, one kernel launch on the card and a plain loop on the CPU
     (``ops/activations.py``)."""
 
+    span_name = "ift.act"
+
     def activation(self, p, x):
         raise NotImplementedError
 
@@ -141,6 +143,8 @@ class SplineActivation(FlowLayer):
     global set of shape (n_bins,). JAX's ``tile_params`` only chose how
     the TPU compiler saw the same numbers, so the port keeps one form."""
 
+    span_name = "ift.act"
+
     def __init__(self, input_size: Tuple[int, ...], n_bins: int = 5,
                  tail_bound: float = 10.0, individual_weights: bool = True,
                  generator=None, device=None):
@@ -182,6 +186,8 @@ class BSplineActivation(FlowLayer):
     and tails included, is one kernel launch on the card
     (:func:`~inverse_flow_tpu_torch.ops.bspline.bspline_inverse`, the
     coefficients shared by every element)."""
+
+    span_name = "ift.act"
 
     def __init__(self, n_bins: int = 8, tail_bound: float = 10.0,
                  generator=None, device=None):

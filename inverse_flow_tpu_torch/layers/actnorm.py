@@ -18,6 +18,8 @@ class ActNorm(FlowLayer):
     """``out = (x - t) * exp(-log_s)`` per channel; ldj
     ``-sum(log_s) * H * W``; inverse ``z * exp(log_s) + t``."""
 
+    span_name = "ift.actnorm"
+
     def __init__(self, n_dims: int, generator=None, device=None):
         super().__init__()
         self.n_dims = n_dims

@@ -62,6 +62,10 @@ class FlowLayer(nn.Module):
     has_recon_loss: bool = False
     #: layers that carry non-learnable state among their parameters
     has_carry: bool = False
+    #: the span (``utils/profiling.SPANS``) that the layer loops of
+    #: ``Flow`` and ``RepeatedBlock`` open around the layer's call; None
+    #: for none
+    span_name = None
 
     def own_params(self):
         """The layer's parameters, its child modules' included, by dotted

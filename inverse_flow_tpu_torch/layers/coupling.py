@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import bspline
 from ..ops.bspline import clip01, monotone_cubic_b_spline
 from ..parallel.mesh import copy_to_model, reduce_from_model
+from ..utils.profiling import span
 from .base import FlowLayer, sum_except_batch
 
 
@@ -67,6 +68,7 @@ class Coupling(FlowLayer):
 
     #: the process group over which a sharded net sums (None: unsharded)
     model_group = None
+    span_name = "ift.coupling"
 
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  logscale_factor: float = 3.0, remat_net: bool = False,
@@ -85,22 +87,23 @@ class Coupling(FlowLayer):
         self.logs3 = nn.Parameter(torch.zeros((c,), device=device))
 
     def _net(self, p, x1):
-        dt = self.compute_dtype             # .to(float32) returns its input
-        group = self.model_group
-        if group is not None:
-            x1 = copy_to_model(x1, group)
-        h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
-        h = F.conv2d(h, p["w2"].to(dt))
-        if group is not None:
-            h = reduce_from_model(h, group)
-        h = F.relu(h)
-        if dt == torch.float32:
-            h = F.conv2d(h, p["w3"], p["b3"], padding=1)
-        else:
-            h = F.conv2d(h, p["w3"].to(dt), padding=1).float()
-            h = h + p["b3"].reshape(1, -1, 1, 1)
-        return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
-            1, -1, 1, 1)
+        with span("ift.coupling.net"):
+            dt = self.compute_dtype         # .to(float32) returns its input
+            group = self.model_group
+            if group is not None:
+                x1 = copy_to_model(x1, group)
+            h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
+            h = F.conv2d(h, p["w2"].to(dt))
+            if group is not None:
+                h = reduce_from_model(h, group)
+            h = F.relu(h)
+            if dt == torch.float32:
+                h = F.conv2d(h, p["w3"], p["b3"], padding=1)
+            else:
+                h = F.conv2d(h, p["w3"].to(dt), padding=1).float()
+                h = h + p["b3"].reshape(1, -1, 1, 1)
+            return h * torch.exp(p["logs3"] * self.logscale_factor).reshape(
+                1, -1, 1, 1)
 
     def _split_logs_t(self, p, x):
         """(x1, x2, log_s, t): the halves and the affine map that x1's net
@@ -135,6 +138,7 @@ class BSplineCoupling(FlowLayer):
 
     #: the process group over which a sharded net sums (None: unsharded)
     model_group = None
+    span_name = "ift.coupling"
 
     def __init__(self, input_size: Tuple[int, int, int], width: int = 512,
                  n_bins: int = 8, tail_bound: float = 10.0,

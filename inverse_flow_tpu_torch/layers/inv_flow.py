@@ -54,6 +54,8 @@ class InvFlow(FlowLayer):
     C/groups, KH, KW), masked per group, and the chain solve runs on its
     dense block-diagonal expansion."""
 
+    span_name = "ift.solve"
+
     def __init__(self, channels: int, kernel_size: Tuple[int, int] = (3, 3),
                  order: str = "TL", solver: str = "exact", groups: int = 1,
                  jacobi_iters: int = 12, jacobi_tol: float = 0.0,
@@ -130,6 +132,8 @@ class InvFlowUnit(FlowLayer):
     which are ``'jacobi'`` or ``'auto'`` (so that each routed solve keeps
     its guard). The parameters are ``convs.i.w``, as the JAX pytree
     ``{"convs": [{"w": ...} x 4]}``."""
+
+    span_name = "ift.solve"
 
     def __init__(self, channels: int, kernel_size: Tuple[int, int] = (3, 3),
                  solver: str = "auto", jacobi_iters: int = 12,

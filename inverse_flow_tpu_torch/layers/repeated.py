@@ -20,6 +20,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .base import FlowLayer, zeros_ldj
 
 
@@ -53,10 +54,11 @@ class RepeatedBlock(FlowLayer):
     def _step(self, k, x, exact=False):
         ldj = zeros_ldj(x)
         for layer, pk in zip(self.steps, self._step_params(k)):
-            if exact and layer.has_exact_path:
-                x, l = layer.exact_forward_with(pk, x)
-            else:
-                x, l = layer.forward_with(pk, x)
+            with span(layer.span_name):
+                if exact and layer.has_exact_path:
+                    x, l = layer.exact_forward_with(pk, x)
+                else:
+                    x, l = layer.forward_with(pk, x)
             ldj = ldj + l
         return x, ldj
 
@@ -81,10 +83,11 @@ class RepeatedBlock(FlowLayer):
         for k in reversed(range(self.n_repeats)):
             for layer, pk in reversed(list(zip(self.steps,
                                                self._step_params(k)))):
-                if exact and layer.has_exact_path:
-                    z = layer.exact_inverse_with(pk, z)
-                else:
-                    z = layer.inverse_with(pk, z)
+                with span(layer.span_name):
+                    if exact and layer.has_exact_path:
+                        z = layer.exact_inverse_with(pk, z)
+                    else:
+                        z = layer.inverse_with(pk, z)
         return z
 
     def inverse_with(self, p, z, generator=None):

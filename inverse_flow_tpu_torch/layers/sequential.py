@@ -17,6 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .base import FlowLayer
 
 
@@ -33,10 +34,11 @@ class Flow(nn.Module):
         log-prob. ``exact``: each layer's exact path where it has one."""
         logdet = torch.zeros((x.shape[0],), device=x.device)
         for layer in self.layers:
-            if exact and layer.has_exact_path:
-                x, ldj = layer.exact_forward(x)
-            else:
-                x, ldj = layer(x, generator)
+            with span(layer.span_name):
+                if exact and layer.has_exact_path:
+                    x, ldj = layer.exact_forward(x)
+                else:
+                    x, ldj = layer(x, generator)
             logdet = logdet + ldj
         return x, self.base_distribution.log_prob(x) + logdet
 
@@ -102,11 +104,12 @@ class Flow(nn.Module):
     def _inverse(self, z, generator, noise, exact=False):
         for i in reversed(range(len(self.layers))):
             layer = self.layers[i]
-            if exact and layer.has_exact_path:
-                z = layer.exact_inverse(z)
-                continue
-            extra = {"noise": noise[i]} if i in noise else {}
-            z = layer.inverse(z, generator, **extra)
+            with span(layer.span_name):
+                if exact and layer.has_exact_path:
+                    z = layer.exact_inverse(z)
+                else:
+                    extra = {"noise": noise[i]} if i in noise else {}
+                    z = layer.inverse(z, generator, **extra)
         return z
 
     @torch.inference_mode()
@@ -117,13 +120,15 @@ class Flow(nn.Module):
         ``generator`` (a fresh one seeded by the system when None), or
         from ``noise``: a dict of ``"base"`` -> z and
         layer index -> that ``SplitPrior``'s factored-out half."""
-        device = self._device()
-        generator = self._generator(generator, device)
-        noise = noise or {}
-        z = noise.get("base")
-        if z is None:
-            z, _ = self.base_distribution.sample(generator, n, device=device)
-        return self._inverse(z, generator, noise, exact)
+        with span("ift.sample"):
+            device = self._device()
+            generator = self._generator(generator, device)
+            noise = noise or {}
+            z = noise.get("base")
+            if z is None:
+                z, _ = self.base_distribution.sample(generator, n,
+                                                     device=device)
+            return self._inverse(z, generator, noise, exact)
 
     @torch.inference_mode()
     def reconstruct(self, x, generator=None, exact=False):

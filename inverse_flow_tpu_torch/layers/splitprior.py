@@ -19,6 +19,8 @@ from .coupling import Coupling
 
 class SplitPrior(Coupling):
 
+    span_name = "ift.prior"
+
     def __init__(self, input_size, width: int = 512, remat_net: bool = False,
                  compute_dtype: str = "float32", generator=None, device=None):
         super().__init__(input_size, width=width, remat_net=remat_net,

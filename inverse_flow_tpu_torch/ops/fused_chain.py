@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from .inv_conv import (_block_toeplitz_inverse, _prev_block, _row_matrices,
                        _solve_wgrad, _transpose_kernel)
 
@@ -279,53 +280,54 @@ def chain_phases(xb, t_all, g_all, dirs, kcw, pad_cw=0, variant=None):
     the kernel that :func:`chain_variant` picks, or ``variant`` when given
     (tests and timings force one). ``chain_phases.launches`` counts the
     launches and ``chain_phases.launches_by_variant`` splits them."""
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"chain_phases: unknown variant {variant!r}")
-    if xb.device.type == "cpu":
-        return chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw)
-    if xb.device.type != "cuda":
-        raise ValueError(f"chain_phases: unsupported device {xb.device}")
-    nb, b, rcw = xb.shape
-    n = len(dirs)
-    tensors = (xb, t_all, g_all)
-    if any(t.device != xb.device for t in tensors):
-        raise ValueError("chain_phases: inputs on different devices")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("chain_phases: the kernel takes float32 only")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("chain_phases: inputs must be contiguous")
-    if not (1 <= n <= 4 and 0 < kcw <= rcw <= MAX_RCW and 0 <= pad_cw < rcw
-            and nb >= 1 and b >= 1
-            and t_all.shape == (n, rcw, rcw)
-            and g_all.shape == (n, rcw, kcw)):
-        raise ValueError(
-            f"chain_phases: unsupported shapes x{tuple(xb.shape)} "
-            f"T{tuple(t_all.shape)} G{tuple(g_all.shape)} n={n} "
-            f"kcw={kcw} pad_cw={pad_cw}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "chain_phases: the raw kernel call has no autograd; use "
-            "fused_chain_solve, whose backward launches the kernel again")
-    from ._build import chain_solve_lib
+    with span("ift.solve.chain"):
+        if variant is not None and variant not in VARIANTS:
+            raise ValueError(f"chain_phases: unknown variant {variant!r}")
+        if xb.device.type == "cpu":
+            return chain_phases_reference(xb, t_all, g_all, dirs, kcw, pad_cw)
+        if xb.device.type != "cuda":
+            raise ValueError(f"chain_phases: unsupported device {xb.device}")
+        nb, b, rcw = xb.shape
+        n = len(dirs)
+        tensors = (xb, t_all, g_all)
+        if any(t.device != xb.device for t in tensors):
+            raise ValueError("chain_phases: inputs on different devices")
+        if any(t.dtype != torch.float32 for t in tensors):
+            raise TypeError("chain_phases: the kernel takes float32 only")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("chain_phases: inputs must be contiguous")
+        if not (1 <= n <= 4 and 0 < kcw <= rcw <= MAX_RCW and 0 <= pad_cw < rcw
+                and nb >= 1 and b >= 1
+                and t_all.shape == (n, rcw, rcw)
+                and g_all.shape == (n, rcw, kcw)):
+            raise ValueError(
+                f"chain_phases: unsupported shapes x{tuple(xb.shape)} "
+                f"T{tuple(t_all.shape)} G{tuple(g_all.shape)} n={n} "
+                f"kcw={kcw} pad_cw={pad_cw}")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            raise NotImplementedError(
+                "chain_phases: the raw kernel call has no autograd; use "
+                "fused_chain_solve, whose backward launches the kernel again")
+        from ._build import chain_solve_lib
 
-    variant = variant or chain_variant(rcw, kcw)
-    y = torch.empty((n, nb, b, rcw), dtype=torch.float32, device=xb.device)
-    dirs_mask = sum(1 << o for o, flip_h in enumerate(dirs) if flip_h)
-    with torch.cuda.device(xb.device):
-        lib = chain_solve_lib(xb.device.index)
-        launch = getattr(lib, _LAUNCHERS[variant])
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(),
-                     y.data_ptr(), n, nb, b, rcw, kcw, pad_cw, dirs_mask,
-                     stream)
-    if err != 0:
-        raise RuntimeError(f"chain_phases: {variant} kernel launch failed "
-                           f"with CUDA error {err}")
-    # on the function itself, not through the module's name, which a
-    # caller may have bound to a wrapper around it
-    _CHAIN_PHASES.launches += 1
-    _CHAIN_PHASES.launches_by_variant[variant] += 1
-    return y
+        variant = variant or chain_variant(rcw, kcw)
+        y = torch.empty((n, nb, b, rcw), dtype=torch.float32, device=xb.device)
+        dirs_mask = sum(1 << o for o, flip_h in enumerate(dirs) if flip_h)
+        with torch.cuda.device(xb.device):
+            lib = chain_solve_lib(xb.device.index)
+            launch = getattr(lib, _LAUNCHERS[variant])
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(xb.data_ptr(), t_all.data_ptr(), g_all.data_ptr(),
+                         y.data_ptr(), n, nb, b, rcw, kcw, pad_cw, dirs_mask,
+                         stream)
+        if err != 0:
+            raise RuntimeError(f"chain_phases: {variant} kernel launch failed "
+                               f"with CUDA error {err}")
+        # on the function itself, not through the module's name, which a
+        # caller may have bound to a wrapper around it
+        _CHAIN_PHASES.launches += 1
+        _CHAIN_PHASES.launches_by_variant[variant] += 1
+        return y
 
 
 _CHAIN_PHASES = chain_phases
@@ -388,14 +390,15 @@ def chain_inputs(x, w_effs, orders):
     blocks cover the zero-padded height ceil(H/R)*R. A height with no
     split into two blocks of at least KH-1 rows runs as one block of H
     rows: no carry is read, so its width is capped at the block's."""
-    b, c, h, width = x.shape
-    kh = w_effs[0].shape[2]
-    r, pad = choose_block_rows_fused(h, c * width, kh) or (h, 0)
-    kcw = min((kh - 1) * c * width, r * c * width)
-    t_all, g_all = _phase_matrices(tuple(w_effs), orders, width, r, kcw)
-    dirs = tuple(ORDER_FLAGS[o][0] for o in orders)
-    xb = _to_blocks(F.pad(x.float(), (0, 0, 0, pad)), r)
-    return xb, t_all, g_all, dirs, kcw, pad * c * width
+    with span("ift.solve.build"):
+        b, c, h, width = x.shape
+        kh = w_effs[0].shape[2]
+        r, pad = choose_block_rows_fused(h, c * width, kh) or (h, 0)
+        kcw = min((kh - 1) * c * width, r * c * width)
+        t_all, g_all = _phase_matrices(tuple(w_effs), orders, width, r, kcw)
+        dirs = tuple(ORDER_FLAGS[o][0] for o in orders)
+        xb = _to_blocks(F.pad(x.float(), (0, 0, 0, pad)), r)
+        return xb, t_all, g_all, dirs, kcw, pad * c * width
 
 
 def backward_inputs(gy, w_effs, orders):

@@ -34,7 +34,7 @@ import torch
 from .. import parallel as dp
 from ..layers.sequential import Flow
 from ..utils.imaging import save_image_grid
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import ExperimentConfig, check_ported
 from .memory import MemoryTracker
@@ -223,47 +223,51 @@ class Experiment:
         ``recon_weight`` is multiplied by ``exp(recon_loss_lr *
         recon_ema)``. Returns the loss as a 0-d device tensor; the recon
         loss stays in ``last_recon``."""
-        cfg = self.cfg
-        recon_on = cfg.add_recon_grad and any(l.has_recon_loss
-                                              for l in self.flow.layers)
-        self.optimizer.zero_grad(set_to_none=True)
-        noise_state = self.generator.get_state() if recon_on else None
-        _, logpx = self.flow.forward(x, self.generator,
-                                     exact=not cfg.modified_grad)
-        nll = -logpx
-        nll = torch.where(torch.isnan(nll), 0.0, nll)
-        loss = nll.sum() / x.shape[0]
-        recon = torch.zeros((), device=x.device)
-        total = loss
-        if recon_on:
-            self.generator.set_state(noise_state)
-            rvec = self.flow.recon_loss(x, self.generator,
-                                        sym=cfg.sym_recon_grad,
-                                        only_R=cfg.only_R_recon)
-            recon = torch.where(torch.isnan(rvec), 0.0, rvec).mean()
-            total = loss + self.recon_weight * recon
-        total.backward()
-        loss, recon = loss.detach(), recon.detach()
-        if self.distributed:
-            for p in self.params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            stats = torch.stack([loss, recon])
-            dp.all_reduce_mean_([p.grad for p in self.params] + [stats])
-            loss, recon = stats[0], stats[1]
-        apply_grads(cfg, self.optimizer, self.scheduler, self.params)
-        if self.flow.has_carry:
-            # carried state (ConvExp's u) follows the new weights
-            self.flow.update_carry()
-        if cfg.recon_loss_lr > 0.0:
-            self.recon_ema = recon if self.step == 0 else (
-                cfg.recon_alpha * self.recon_ema
-                + (1 - cfg.recon_alpha) * recon)
-            self.recon_weight = self.recon_weight * torch.exp(
-                cfg.recon_loss_lr * self.recon_ema)
-        self.last_recon = recon
-        self.step += 1
-        return loss
+        with span("ift.step"):
+            cfg = self.cfg
+            recon_on = cfg.add_recon_grad and any(l.has_recon_loss
+                                                  for l in self.flow.layers)
+            self.optimizer.zero_grad(set_to_none=True)
+            noise_state = self.generator.get_state() if recon_on else None
+            with span("ift.step.forward"):
+                _, logpx = self.flow.forward(x, self.generator,
+                                             exact=not cfg.modified_grad)
+                nll = -logpx
+                nll = torch.where(torch.isnan(nll), 0.0, nll)
+                loss = nll.sum() / x.shape[0]
+                recon = torch.zeros((), device=x.device)
+                total = loss
+                if recon_on:
+                    self.generator.set_state(noise_state)
+                    rvec = self.flow.recon_loss(x, self.generator,
+                                                sym=cfg.sym_recon_grad,
+                                                only_R=cfg.only_R_recon)
+                    recon = torch.where(torch.isnan(rvec), 0.0, rvec).mean()
+                    total = loss + self.recon_weight * recon
+            with span("ift.step.backward"):
+                total.backward()
+            loss, recon = loss.detach(), recon.detach()
+            if self.distributed:
+                for p in self.params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                stats = torch.stack([loss, recon])
+                dp.all_reduce_mean_([p.grad for p in self.params] + [stats])
+                loss, recon = stats[0], stats[1]
+            with span("ift.step.optim"):
+                apply_grads(cfg, self.optimizer, self.scheduler, self.params)
+                if self.flow.has_carry:
+                    # carried state (ConvExp's u) follows the new weights
+                    self.flow.update_carry()
+                if cfg.recon_loss_lr > 0.0:
+                    self.recon_ema = recon if self.step == 0 else (
+                        cfg.recon_alpha * self.recon_ema
+                        + (1 - cfg.recon_alpha) * recon)
+                    self.recon_weight = self.recon_weight * torch.exp(
+                        cfg.recon_loss_lr * self.recon_ema)
+            self.last_recon = recon
+            self.step += 1
+            return loss
 
     def _mark(self):
         """A point in time on the device's clock: a recorded CUDA event, or

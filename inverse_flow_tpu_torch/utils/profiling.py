@@ -1,11 +1,13 @@
-"""Profiler traces and the card's timers.
+"""Profiler traces, the program's spans and the card's timers.
 
 Port of ``inverse_flow_tpu/utils/profiling.py:trace`` on ``torch.profiler``:
 host and CUDA activity of the block, written as a Chrome trace into
-``profile_dir``. Beside it, the timers that ``bench.py`` and
-``chip_smoke.py`` share: :func:`time_ms` and :func:`ab_ms` (CUDA events)
-and :func:`device_profile` (device busy time, idle share and launch calls
-from the profiler's raw events).
+``profile_dir``. :func:`span` marks the program's layer boundaries in
+whatever profiler records (``ift.*``, listed in :data:`SPANS`). Beside
+them, the timers that ``bench.py`` and ``chip_smoke.py`` share:
+:func:`time_ms` and :func:`ab_ms` (CUDA events) and :func:`device_profile`
+(device busy time, idle share and launch calls from the profiler's raw
+events).
 """
 
 from __future__ import annotations
@@ -16,11 +18,51 @@ import statistics
 import time
 from typing import Optional
 
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+# every span the program opens, and where
+SPANS = {
+    "ift.step": "Experiment.train_step, whole",
+    "ift.step.forward": "train_step: Flow.forward, the NaN scrub, the loss "
+                        "(and the recon loss)",
+    "ift.step.backward": "train_step: the backward",
+    "ift.step.optim": "train_step: apply_grads, update_carry, GECO",
+    "ift.sample": "Flow.sample, whole",
+    "ift.actnorm": "an ActNorm's call in the layer loops of Flow and "
+                   "RepeatedBlock",
+    "ift.solve": "an InvFlow's or InvFlowUnit's call in those loops",
+    "ift.act": "an activation's call in those loops",
+    "ift.coupling": "a Coupling's call in those loops",
+    "ift.prior": "a SplitPrior's call in those loops",
+    "ift.solve.build": "fused_chain.chain_inputs: the operator build, "
+                       "forward and backward",
+    "ift.solve.chain": "fused_chain.chain_phases: the chain launch, forward "
+                       "and backward",
+    "ift.coupling.net": "Coupling._net (again in the backward when the net "
+                        "is recomputed)",
+}
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name):
+    """The span ``name`` (one of :data:`SPANS`, or None for none) while a
+    profiler records, else one shared null context. A span is a record
+    function of FUNCTION scope (``_RecordFunctionFast``): it lands in the
+    profiler's host events on the kernels' clock, and kineto does not copy
+    it onto the device timeline as it does ``record_function``'s
+    USER_SCOPE ranges. With no profiler a span costs the state test."""
+    if name is None or not _profiler_enabled():
+        return _NULL
+    return _RecordFunctionFast(name)
+
 
 @contextlib.contextmanager
 def trace(profile_dir: Optional[str]):
     """Trace the block into ``profile_dir/trace.json`` (a no-op for
-    None). CUDA activity is recorded when a card is present."""
+    None), the program's spans (:data:`SPANS`) included. CUDA activity
+    is recorded when a card is present."""
     if not profile_dir:
         yield
         return
