@@ -234,7 +234,18 @@ in phases:
      step) and ``timescale_s64`` / ``_s128`` (a step, 2 + 2
      launches, against the plain chain); ``bench.bench_config`` on each
      (2 rounds of 1 step); and ``python -m inverse_flow_tpu_torch.bench``
-     in a subprocess, its last line the flagship's on this card.
+     in a subprocess, its last line the flagship's on this card;
+ 20. the coupling nets' kernels (:func:`phase_coupling_net`): their
+     registers, then at each net of :data:`NET_CASES` (the flagship's two
+     at the benchmark's B=8192, every float32 net of ``bench.py``'s
+     configurations, the CIFAR Glows', FastFlow's, the mesh's slice and
+     the SplitPriorFC's, each at its batch) the plan, the forward and the
+     backward against the float64 composition, two backward runs bitwise
+     equal, and each direction timed against the cuDNN composition it
+     replaces (the op's plain version, ``F.conv2d``, TF32 off) and the
+     bound (its FLOPs at 67 TFLOP/s). Phases 6 and 7 count the kernels'
+     launches of the flagship's draw (33 forward) and train steps (66
+     forward, 33 backward, 33 reduce a step).
 
 Every chain launch of the flagship, imagenet32, ff, Emerging, FastFlow
 and CIFAR paths, the bf16 configurations and the grouped ``InvFlow`` must
@@ -257,6 +268,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -684,12 +696,14 @@ def cluster_only(what, launches):
     return by
 
 
-def counted_epoch(exp, first, torch):
+def counted_epoch(exp, first, torch, nets=None):
     """``maybe_data_init(first)`` and one ``train_epoch``, with the chain
     kernel's launch counts set to 0 just before and read just after; every
-    launch must go to the cluster kernel. Returns (losses, mean loss,
-    launches, backward launches, the state after data init)."""
-    from inverse_flow_tpu_torch.ops import fused_chain
+    launch must go to the cluster kernel. With a dict ``nets``, the
+    coupling nets' launch counts of the epoch alone (set to 0 after the
+    data init) go into it by kind. Returns (losses, mean loss, launches,
+    backward launches, the state after data init)."""
+    from inverse_flow_tpu_torch.ops import coupling_net, fused_chain
 
     losses, bwd = [], [0]
     step_fn = exp.train_step
@@ -711,9 +725,12 @@ def counted_epoch(exp, first, torch):
         fused_chain.reset_launches()
         exp.maybe_data_init(first)
         init_state = copy.deepcopy(exp.flow.state_dict())
+        coupling_net.reset_launches()
         mean_loss = exp.train_epoch(1)
         torch.cuda.synchronize()
         launches = fused_chain.chain_phases.launches
+        if nets is not None:
+            nets.update(coupling_net.coupling_net_hidden.launches_by_kind)
     cluster_only(f"{exp.cfg.name} data init + epoch", launches)
     return [float(v) for v in losses], mean_loss, launches, bwd[0], init_state
 
@@ -793,8 +810,10 @@ def phase_train(dev, card, torch):
     backward), every weight within the clamp, and the step-1 gradients
     through the kernel against the plain chain; prints train ms/step
     against the plain chain, peak memory, and the device's busy time and
-    launches per step. Returns the main path's (forward, backward)
-    launches."""
+    launches per step. Checks 66 forward, 33 backward and 33 reduce
+    launches of the coupling nets' kernels a step. Returns the main
+    path's (forward, backward) chain launches and the nets' launches a
+    step by kind."""
     from inverse_flow_tpu_torch.data import ArrayLoader, mnist
     from inverse_flow_tpu_torch.models.glow import build_glow
     from inverse_flow_tpu_torch.train.config import ExperimentConfig
@@ -822,8 +841,9 @@ def phase_train(dev, card, torch):
     steps = len(train)
     first = train.data[:BATCH]
 
+    nets = {}
     values, mean_loss, launches, bwd, init_state = counted_epoch(
-        exp, first, torch)
+        exp, first, torch, nets)
     peak_gb = exp.memory_tracker.snapshot()["peak_mb"] / 1024
     w_max = max(p.detach().abs().max().item() for p in flow.parameters())
     print(f"train: {cfg.name} data init + {len(values)} steps of {BATCH} "
@@ -843,12 +863,20 @@ def phase_train(dev, card, torch):
              f"({32 * steps} backward), got {launches} ({bwd})")
     if not w_max <= cfg.weight_clamp * (1 + 1e-6):
         fail(f"a weight exceeds the clamp: {w_max}")
+    # the 33 nets (32 couplings, the SplitPrior), each step: the forward
+    # and the checkpoint's recompute, one backward and one reduction
+    want = {"forward": 66 * steps, "backward": 33 * steps,
+            "reduce": 33 * steps}
+    print(f"train: coupling net launches {nets} for {steps} steps "
+          f"(66 / 33 / 33 per step)", flush=True)
+    if nets != want:
+        fail(f"expected coupling net launches {want}, got {nets}")
 
     flow.load_state_dict(init_state)
     x = check_grads("train", flow, first, gen, dev, torch)[0]
     step = time_steps("train", exp, x, 2, 4, card, torch)
     device_profile("train", "step", step, 2, card)
-    return launches - bwd, bwd
+    return launches - bwd, bwd, {k: v // steps for k, v in nets.items()}
 
 
 def phase_imagenet32(dev, gen, card, torch):
@@ -1074,21 +1102,30 @@ def block_magnitudes(flow, noise, torch):
 
 def flagship_sample(flow, gen, card, torch):
     """The flagship's ``Flow.sample`` of 100 images: no chain launch (its
-    inverse is the masked conv), finite samples, ms per 100."""
-    from inverse_flow_tpu_torch.ops import fused_chain
+    inverse is the masked conv), 33 forward launches of the coupling nets'
+    kernel (the counts set to 0 just before), finite samples, ms per 100.
+    Returns the nets' launches by kind."""
+    from inverse_flow_tpu_torch.ops import coupling_net, fused_chain
 
     fused_chain.reset_launches()
+    coupling_net.reset_launches()
     x = flow.sample(BATCH, gen)
     torch.cuda.synchronize()
     launches = fused_chain.chain_phases.launches
+    nets = dict(coupling_net.coupling_net_hidden.launches_by_kind)
     t = ab_ms({"sample": lambda: flow.sample(BATCH, gen)}, reps=1, rounds=4)
     print(f"sample: flagship Flow.sample of {BATCH}: {launches} chain kernel "
           f"launches, values {x.min().item():.0f}..{x.max().item():.0f}; "
           f"{t['sample']:.3f} ms per {BATCH} images, median of 4 {card}",
           flush=True)
+    print(f"sample: coupling net launches {nets} (33 forward a draw)",
+          flush=True)
     if launches != 0 or x.shape != (BATCH, 1, 28, 28) \
             or not torch.isfinite(x).all():
         fail("the flagship's samples launched the chain or are not finite")
+    if nets != {"forward": 33, "backward": 0, "reduce": 0}:
+        fail(f"expected 33 forward coupling net launches a draw, got {nets}")
+    return nets
 
 
 def phase_ff(dev, gen, card, torch):
@@ -4828,6 +4865,152 @@ def plain_sample(flow, n, gen):
         return flow.sample(n, gen)
 
 
+# the coupling nets that phase 20 checks and times, each at its
+# configuration's batch: (what, B, Cin, H, W, width N, C). The flagship's
+# two at the benchmark's batch, then every distinct float32 net of
+# bench.py's configurations (glow_mnist and glow_mnist_fused_units;
+# imagenet32 and imagenet32_exact), if_glow_cifar's, FastFlow's (and the
+# width-512 CIFAR Glows'), the flagship's level 1 on a 2-way model mesh's
+# slice of the width at a data row's batch, and the zoo's SplitPriorFC
+NET_CASES = [
+    ("glow_mnist l1 B8192", 8192, 2, 14, 14, 512, 4),
+    ("glow_mnist l2 B8192", 8192, 4, 7, 7, 512, 8),
+    ("glow_mnist l1", 100, 2, 14, 14, 512, 4),
+    ("glow_mnist l2", 100, 4, 7, 7, 512, 8),
+    ("imagenet32 l1", 100, 6, 16, 16, 128, 12),
+    ("imagenet32 l2", 100, 12, 8, 8, 128, 24),
+    ("imagenet32 l3", 100, 24, 4, 4, 128, 48),
+    ("if_glow_cifar l1", 140, 6, 16, 16, 128, 12),
+    ("if_glow_cifar l2", 140, 12, 8, 8, 128, 24),
+    ("fastflow l1", 100, 6, 16, 16, 512, 12),
+    ("fastflow l2", 100, 12, 8, 8, 512, 24),
+    ("fastflow l3", 100, 24, 4, 4, 512, 48),
+    ("mesh slice", 50, 2, 14, 14, 256, 4),
+    ("SplitPriorFC", 100, 6, 1, 1, 16, 12),
+]
+
+
+def net_flops(cin, n, c, pixels):
+    """(forward, backward) FLOPs of one coupling net's conv3x3 -> ReLU ->
+    conv1x1 on ``pixels`` pixels: 2 (K + C) N and 2 (3K + 2C) N a pixel
+    (K = 9 Cin; the backward recomputes the hidden activation, then dh,
+    dW2, dW1 and the patch gradient)."""
+    k = 9 * cin
+    return 2 * (k + c) * n * pixels, 2 * (3 * k + 2 * c) * n * pixels
+
+
+def phase_coupling_net(dev, card, torch):
+    """Phase 20: ``csrc/coupling_net.cu``'s registers, and at each of
+    :data:`NET_CASES` the plan, the forward and the backward (its launch
+    and the reduction's) against the float64 composition (output and dx1
+    to 2e-5 of the largest entry, dW1 and dW2 to 1e-4: float32 sums of
+    K + N terms and of up to 1.6M pixels), two backward runs bitwise
+    equal, and the times of the kernels, of the cuDNN composition (the
+    op's plain version on the card, forward; its autograd backward on a
+    kept graph) and the bound. Returns the rows."""
+    from inverse_flow_tpu_torch.ops import _build
+    from inverse_flow_tpu_torch.ops import coupling_net as tcn
+
+    name = None
+    for line in _build.build_log("coupling_net").splitlines():
+        if "Compiling entry" in line:
+            # the instance's template arguments, from the mangled name
+            kind = next(k for k in ("fwd", "bwd", "reduce")
+                        if f"coupling_net_{k}_kernel" in line)
+            args = re.findall(r"L[ib](\d+)E", line.split("_kernel", 1)[1])
+            name = f"{kind}<{','.join(args)}>" if args else kind
+        elif "registers" in line or "spill" in line:
+            print(f"build: coupling_net {name}: {line.strip()}", flush=True)
+    gen = torch.Generator(dev).manual_seed(0)
+    rows = []
+    for what, b, cin, h, w, n, c in NET_CASES:
+        tag = f"{what} ({b},{cin},{h},{w}) -> {n} -> {c}"
+        # x1 and w1 on the grids of 1/8 and 1/64: the hidden
+        # pre-activations are exact in float32, so the ReLU masks the same
+        # entries as in the float64 reference
+        x1 = (8 * torch.randn(b, cin, h, w, generator=gen,
+                              device=dev)).round().clamp(-31, 31) / 8
+        w1 = (64 * (2 * torch.rand(n, cin, 3, 3, generator=gen, device=dev)
+                    - 1) / math.sqrt(9 * cin)).round() / 64
+        w2 = (2 * torch.rand(c, n, 1, 1, generator=gen, device=dev) - 1) \
+            / math.sqrt(n)
+        g = torch.randn(b, c, h, w, generator=gen, device=dev)
+        plan = tcn.plan(x1, w1, w2)
+        print(f"coupling_net: {tag} plan {plan}", flush=True)
+        tcn.reset_launches()
+        with torch.no_grad():
+            out = tcn.coupling_net_hidden(x1, w1, w2)
+        grads = tcn._backward(x1, w1, w2, g, True)
+        again = tcn._backward(x1, w1, w2, g, True)
+        torch.cuda.synchronize()
+        launches = dict(tcn.coupling_net_hidden.launches_by_kind)
+        if launches != {"forward": plan["fwd_launches"], "backward": 2,
+                        "reduce": 2}:
+            fail(f"coupling_net {tag}: launches {launches}")
+        if not all(torch.equal(a, r) for a, r in zip(grads, again)):
+            fail(f"coupling_net {tag}: two backward runs differ")
+        ref = [t.double().requires_grad_(True) for t in (x1, w1, w2)]
+        ref_out = tcn.coupling_net_reference(*ref)
+        ref_grads = torch.autograd.grad(ref_out, ref, g.double())
+        errs = {}
+        for key, a, r in zip(("out", "dx1", "dw1", "dw2"),
+                             (out, *grads), (ref_out, *ref_grads)):
+            errs[key] = ((a.double() - r).abs().max()
+                         / r.abs().max()).item()
+        del ref, ref_out, ref_grads, again
+        torch.cuda.empty_cache()
+        print(f"coupling_net: {tag} error / max|ref|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+        if max(errs["out"], errs["dx1"]) > 2e-5 or max(
+                errs["dw1"], errs["dw2"]) > 1e-4:
+            fail(f"coupling_net {tag}: error {errs}")
+        # the cuDNN composition: forward; backward on a kept graph
+        lx = [t.clone().requires_grad_(True) for t in (x1, w1, w2)]
+        lib_out = tcn.coupling_net_reference(*lx)
+
+        def lib_fwd():
+            with torch.no_grad():
+                tcn.coupling_net_reference(x1, w1, w2)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, lx, g, retain_graph=True)
+
+        def ker_fwd():
+            with torch.no_grad():
+                tcn._forward(x1, w1, w2)
+
+        def ker_bwd():
+            tcn._backward(x1, w1, w2, g, True)
+
+        big = b * h * w > 100_000
+        t = ab_ms({"kernel_fwd": ker_fwd, "library_fwd": lib_fwd},
+                  10 if big else 50, 4, ahead=20)
+        t.update(ab_ms({"kernel_bwd": ker_bwd, "library_bwd": lib_bwd},
+                       5 if big else 50, 4, ahead=60))
+        del lx, lib_out
+        torch.cuda.empty_cache()
+        fl_f, fl_b = net_flops(cin, n, c, b * h * w)
+        row = dict(shape=tag, **{k: round(v, 4) for k, v in t.items()},
+                   bound_fwd=round(fl_f / PEAK_FP32_FLOPS * 1e3, 4),
+                   bound_bwd=round(fl_b / PEAK_FP32_FLOPS * 1e3, 4),
+                   errors=errs, plan=plan)
+        for d in ("fwd", "bwd"):
+            row[f"share_{d}"] = round(100 * row[f"bound_{d}"]
+                                      / row[f"kernel_{d}"], 2)
+            row[f"speedup_{d}"] = round(row[f"library_{d}"]
+                                        / row[f"kernel_{d}"], 2)
+        print(f"coupling_net: {tag} ms: kernel fwd {row['kernel_fwd']} "
+              f"bwd {row['kernel_bwd']}; cuDNN composition (plain) fwd "
+              f"{row['library_fwd']} bwd {row['library_bwd']}; bound fwd "
+              f"{row['bound_fwd']} bwd {row['bound_bwd']}; share of bound "
+              f"{row['share_fwd']}% / {row['share_bwd']}%; speedup "
+              f"{row['speedup_fwd']}x / {row['speedup_bwd']}x {card}",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def main():
     import torch
 
@@ -4875,10 +5058,12 @@ def main():
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         libs = list(pool.map(_build.build, ("chain_solve", "slr_inverse",
-                                            "bspline_inverse")))
+                                            "bspline_inverse",
+                                            "coupling_net")))
     _build.chain_solve_lib(dev.index)
     _build.slr_inverse_lib()
     _build.bspline_inverse_lib()
+    _build.coupling_net_lib()
     print(f"build: {', '.join(os.path.relpath(p, HERE) for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_build(dev, _build, fused_chain)
@@ -4974,11 +5159,11 @@ def main():
 
     # ---- 6. profile -----------------------------------------------------
     profile_eval(flow, x, exp.generator, card, torch)
-    flagship_sample(flow, gen, card, torch)
+    draw_nets = flagship_sample(flow, gen, card, torch)
     phase_done(6)
 
     # ---- 7. train -------------------------------------------------------
-    fwd_launches, bwd_launches = phase_train(dev, card, torch)
+    fwd_launches, bwd_launches, step_nets = phase_train(dev, card, torch)
     phase_done(7)
 
     # ---- 8. imagenet32 --------------------------------------------------
@@ -5036,7 +5221,11 @@ def main():
     bench_rows = phase_bench(dev, gen, card, torch, _build)
     phase_done(19)
 
-    print(f"smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s",
+    # ---- 20. the coupling nets' kernels ---------------------------------
+    net_rows = phase_coupling_net(dev, card, torch)
+    phase_done(20)
+
+    print(f"smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     cnn_by_variant = cnn_row.pop("launches_by_variant")
 
@@ -5122,7 +5311,22 @@ def main():
         # shapes (row E0), launches: its step through the kernel (the
         # counts set to 0 just before)
         entry("chain_phases:fused_units", **bench_rows[0]),
-        entry("chain_phases:fused_units_backward", **bench_rows[1])]}),
+        entry("chain_phases:fused_units_backward", **bench_rows[1]),
+        # phase 20: the coupling nets' kernels (ms and bound_ms: each
+        # case's, NET_CASES), launches: the flagship's train epoch (phase
+        # 7, a step's; the counts set to 0 just before) and its draw of
+        # 100 (phase 6)
+        dict(name="coupling_net", route="cuda",
+             source="inverse_flow_tpu_torch/csrc/coupling_net.cu",
+             replaces="inverse_flow_tpu/layers/coupling.py:95",
+             launches=sum(step_nets.values()), launches_by_kind=step_nets,
+             draw_launches_by_kind=draw_nets, ms={
+                 r["shape"]: [r["kernel_fwd"], r["kernel_bwd"]]
+                 for r in net_rows},
+             bound_ms={r["shape"]: [r["bound_fwd"], r["bound_bwd"]]
+                       for r in net_rows},
+             library_ms={r["shape"]: [r["library_fwd"], r["library_bwd"]]
+                         for r in net_rows})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

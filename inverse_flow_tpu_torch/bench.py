@@ -45,13 +45,14 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from unittest import mock
 
 import torch
 
 from .data import synthetic
 from .experiments import bench_configs
-from .ops import fused_chain
+from .ops import coupling_net, fused_chain
 from .utils import profiling
 
 CONFIGS = bench_configs.CONFIGS
@@ -72,7 +73,8 @@ PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.0}
 METHODOLOGY = "cuda-events(median of turns), tf32 off"
 FLOPS_METHOD = ("FlopCounterMode over one step (a checkpointed step's "
                 "recompute included) + 2 x chain_work multiply-adds x batch "
-                "a chain launch")
+                "a chain launch + the F.conv2d composition's FLOPs a "
+                "coupling-net kernel call")
 # the checkout's own output directory, whatever the working directory
 OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "chiprun_out")
@@ -103,25 +105,46 @@ def step_flops(step):
     ``fused_chain.chain_phases`` launch counts 2 x ``chain_work``'s
     multiply-adds x batch and nothing of what runs inside it, so that the
     count is the same whichever chain runs (the kernel, which the counter
-    cannot see, or the plain chain's matmuls)."""
+    cannot see, or the plain chain's matmuls). Likewise a coupling net's
+    kernel call (``coupling_net``'s forward or backward, which the counter
+    cannot see either) counts what the counter counts of the ``F.conv2d``
+    composition it replaces (``coupling_net.composition_flops``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)
     chain = fused_chain.chain_phases
-    seen = {"inside": 0, "chain": 0, "launches": 0}
+    net_fwd, net_bwd = coupling_net._forward, coupling_net._backward
+    seen = {"inside": 0, "chain": 0, "launches": 0, "nets": 0}
+
+    def inside(fn, *args):
+        before = counter.get_total_flops()
+        y = fn(*args)
+        seen["inside"] += counter.get_total_flops() - before
+        return y
 
     def counted(*args, **kwargs):
-        before = counter.get_total_flops()
-        y = chain(*args, **kwargs)
-        seen["inside"] += counter.get_total_flops() - before
+        y = inside(partial(chain, **kwargs), *args)
         seen["chain"] += 2 * fused_chain.chain_work(args)[0] * \
             args[0].shape[1]
         seen["launches"] += 1
         return y
 
-    with mock.patch.object(fused_chain, "chain_phases", counted), counter:
+    def counted_net_fwd(x1, w1, w2):
+        seen["nets"] += coupling_net.composition_flops(x1, w1, w2)[0]
+        return inside(net_fwd, x1, w1, w2)
+
+    def counted_net_bwd(x1, w1, w2, g, need_dx):
+        seen["nets"] += coupling_net.composition_flops(x1, w1, w2,
+                                                       need_dx)[1]
+        return inside(net_bwd, x1, w1, w2, g, need_dx)
+
+    with mock.patch.object(fused_chain, "chain_phases", counted), \
+            mock.patch.object(coupling_net, "_forward", counted_net_fwd), \
+            mock.patch.object(coupling_net, "_backward", counted_net_bwd), \
+            counter:
         step()
-    total = counter.get_total_flops() - seen["inside"] + seen["chain"]
+    total = (counter.get_total_flops() - seen["inside"] + seen["chain"]
+             + seen["nets"])
     return total, seen["chain"], seen["launches"]
 
 

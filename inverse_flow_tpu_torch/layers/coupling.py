@@ -4,9 +4,13 @@ Port of ``inverse_flow_tpu/layers/coupling.py:Coupling``: net
 conv3x3 -> ReLU -> conv1x1 -> ReLU -> Conv2dZero (zero init, ReZero
 log-scale); ``log_s = 2*tanh(h/2)``; even/odd channel split of the net
 output; the inverse runs the same net on the first half and undoes the
-affine map. ``remat_net`` checkpoints the net (``torch.utils.checkpoint``, as
-``jax.checkpoint`` in the JAX layer): its activations are recomputed in
-the backward instead of kept; the values are the same.
+affine map. In float32 the net's first two convs and the ReLU between
+them are :func:`~inverse_flow_tpu_torch.ops.coupling_net.
+coupling_net_hidden`: one hand-written kernel on the card (its backward
+another), the ``F.conv2d`` composition on the CPU. ``remat_net``
+checkpoints the net (``torch.utils.checkpoint``, as ``jax.checkpoint`` in
+the JAX layer): its activations are recomputed in the backward instead of
+kept; the values are the same.
 ``compute_dtype="bfloat16"`` (or ``"bf16"``) runs the net's three convs in
 bf16, as the JAX layer's mixed-precision policy: x1 and the three weights
 are cast per call, the net's output is cast back to float32 before ``b3``
@@ -40,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import bspline
 from ..ops.bspline import clip01, monotone_cubic_b_spline
+from ..ops.coupling_net import coupling_net_hidden
 from ..parallel.mesh import copy_to_model, reduce_from_model
 from ..utils.profiling import span
 from .base import FlowLayer, sum_except_batch
@@ -92,8 +97,11 @@ class Coupling(FlowLayer):
             group = self.model_group
             if group is not None:
                 x1 = copy_to_model(x1, group)
-            h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
-            h = F.conv2d(h, p["w2"].to(dt))
+            if dt == torch.float32:
+                h = coupling_net_hidden(x1, p["w1"], p["w2"])
+            else:
+                h = F.relu(F.conv2d(x1.to(dt), p["w1"].to(dt), padding=1))
+                h = F.conv2d(h, p["w2"].to(dt))
             if group is not None:
                 h = reduce_from_model(h, group)
             h = F.relu(h)

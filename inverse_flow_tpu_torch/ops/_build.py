@@ -163,3 +163,28 @@ def cluster_wide_plan(device_index: int, b: int, rcw: int, kcw: int) -> dict:
                            f"error {err}")
     return dict(zip(("groups", "stages", "chunk", "smem", "active",
                      "needed"), out))
+
+
+@functools.cache
+def coupling_net_lib() -> ctypes.CDLL:
+    """``csrc/coupling_net.cu`` (a coupling net's conv3x3 -> ReLU ->
+    conv1x1, forward, backward and the weight gradients' reduction), built
+    and loaded once per process."""
+    lib = ctypes.CDLL(build("coupling_net"))
+    shape = [ctypes.c_int] * 6
+    lib.coupling_net_plan.argtypes = shape + [ctypes.POINTER(ctypes.c_int)]
+    lib.coupling_net_plan.restype = ctypes.c_int
+    lib.coupling_net_fwd_f32.argtypes = ([ctypes.c_void_p] * 4 + shape
+                                         + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p])
+    lib.coupling_net_fwd_f32.restype = ctypes.c_int
+    lib.coupling_net_bwd_f32.argtypes = ([ctypes.c_void_p] * 7
+                                         + [ctypes.c_int] * 2 + shape
+                                         + [ctypes.c_longlong,
+                                            ctypes.c_void_p])
+    lib.coupling_net_bwd_f32.restype = ctypes.c_int
+    lib.coupling_net_reduce_f32.argtypes = ([ctypes.c_void_p] * 6
+                                            + [ctypes.c_int] * 3 + shape
+                                            + [ctypes.c_void_p])
+    lib.coupling_net_reduce_f32.restype = ctypes.c_int
+    return lib
