@@ -7,7 +7,7 @@ split by span, the spans opened a unit, and the host's time in launch
 calls (a launch blocks once the device's queue is full). One JSON line
 goes to standard output and to ``chiprun_out/breakdown.jsonl``.
 
-    python3 benchmark/breakdown.py --workload glow_mnist.train --seed 3100000037 --seconds 51
+    python3 benchmark/breakdown.py --workload glow_mnist.train_b24576 --seed 3100000037 --seconds 51
 """
 
 from __future__ import annotations

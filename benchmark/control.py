@@ -5,7 +5,7 @@ precision below the configuration's, TF32 for float32 (the control: the
 upper reading), and, for a train cell, the reference with each step on
 half of its batch (a fault). The benchmark's own runs do not run this.
 
-    python3 benchmark/control.py --workload glow_mnist.train --seeds 1 2 3
+    python3 benchmark/control.py --workload glow_mnist.train_b24576 --seeds 1 2 3
 
 One JSON line a seed: {"seed", "program": {number: value}, "control":
 {...}, "half_batch": {...}}.

@@ -1,9 +1,9 @@
-"""The batch sweep that sized the glow_mnist cells: each batch is one
+"""The batch sweep that sizes the glow_mnist cells: each batch is one
 traced run of the cell, at a batch other than its own, in a process of
 its own, one after another; a JSON line each goes to
 ``chiprun_out/bench_sweep.jsonl`` and standard output.
 
-    python3 benchmark/sweep.py --workload glow_mnist.train --batches 2048 4096 8192
+    python3 benchmark/sweep.py --workload glow_mnist.train_b24576 --batches 8192 16384 24576 32768
 """
 
 from __future__ import annotations

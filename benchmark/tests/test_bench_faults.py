@@ -45,12 +45,12 @@ def test_state_left_unchanged_is_caught(monkeypatch):
     from inverse_flow_tpu_torch.train import experiment
 
     monkeypatch.setattr(experiment, "apply_grads", lambda *a, **k: None)
-    result = run("glow_mnist.train")
+    result = run("glow_mnist.train_b24576")
     assert result["correct"] is False
     assert result["checks"]["change_gap"]["value"] == 1.0
 
 
-@pytest.mark.parametrize("cell", ["glow_mnist.train"])
+@pytest.mark.parametrize("cell", ["glow_mnist.train_b24576"])
 def test_half_the_batch_is_caught(monkeypatch, cell):
     from inverse_flow_tpu_torch.train.experiment import Experiment
 
@@ -71,7 +71,7 @@ def test_an_altered_image_is_caught(monkeypatch):
         return x
 
     monkeypatch.setattr(Flow, "sample", altered)
-    result = run("glow_mnist.sample")
+    result = run("glow_mnist.sample_b32768")
     assert result["correct"] is False
     assert result["checks"]["image_off_share"]["value"] == 1.0
 
@@ -83,4 +83,4 @@ def test_half_the_images_left_out_is_caught(monkeypatch):
     monkeypatch.setattr(
         Flow, "sample", lambda self, n, generator=None, noise=None,
         exact=False: sample(self, n, generator, noise, exact)[:n // 2])
-    assert run("glow_mnist.sample")["correct"] is False
+    assert run("glow_mnist.sample_b32768")["correct"] is False
